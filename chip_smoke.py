@@ -7,11 +7,13 @@ Phases, each printing one JSON line:
 
   1. device   the card (name and power limit from nvidia-smi), the build of
               the CUDA kernels from the sources in this checkout.
-  2. kernel   each kernel of the serving path against its plain PyTorch
-              version on the card at the path's shapes: error against the
-              stated tolerance, and times (CUDA events) of the kernel, the
-              plain version and one PyTorch library call, beside the
-              kernel's bound on an H100 SXM.
+  2. kernel   each kernel of the serving and training paths against its
+              plain PyTorch version on the card at the path's shapes, the
+              head kernels (K3, K5, K6) with dropout 0.3 (kernel and plain
+              version draw the same mask): error against the stated
+              tolerance, and times (CUDA events) of the kernel, the plain
+              version and one PyTorch library call where one exists, beside
+              the kernel's bound on an H100 SXM.
   3. serve    sparsify + predict (11 draws) at the bench partition's full
               width (N=2048, E=1M, 602 features, nhid 256, 41 classes,
               q=200k, bf16) with random weights from a seed; launch counts of
@@ -19,12 +21,21 @@ Phases, each printing one JSON line:
               against the same port run on the CPU in f32. One more call of
               each under torch.profiler (a ``profile`` line each): device
               time by kernel, device busy time and idle share.
+  4. train    the learned hybrid_rescore training step (bench.py's workload:
+              conditional, sparse_edge_mlp, reg1, reg2, dropout 0.3) on the
+              same partition with its tile index: one warm-up step, the
+              launch counts of one step against the counts the path
+              implies, 20 timed steps (finite losses, parameters moved), one
+              step under torch.profiler, and one frozen-sample step without
+              dropout whose loss and gradients are held against the port on
+              the CPU in f32 (a ``grad_check`` line).
 
 Then a ``kernels`` line (every kernel: route, source, the TPU kernel it
-replaces, launches, error and times) and, last, the ok line. Any failed
-check raises and the script exits nonzero without the ok line; without a
-card it exits 1 before doing anything.
+replaces, launches per training step, error and times) and, last, the ok
+line. Any failed check raises and the script exits nonzero without the ok
+line; without a card it exits 1 before doing anything.
 """
+import contextlib
 import json
 import subprocess
 import sys
@@ -41,6 +52,19 @@ F32_FLOPS = 67e12
 N_NODES, N_EDGES, FEAT, CLASSES, NHID, Q, DRAWS = (2048, 1_000_000, 602, 41,
                                                    256, 200_000, 11)
 CPU_SUBSAMPLE = 65_536     # edges scored by the CPU f32 reference
+DROP = 0.3                 # Config.drop_rate, the head kernels' dropout
+DEVICE = "cuda"            # the card (a CPU rehearsal sets "cpu")
+TRAIN_STEPS = 20
+GRAD_REL_TOL = 0.05        # grad_check: relative L2, card bf16 vs CPU f32
+# launches of one learned hybrid_rescore step (conditional, sparse_edge_mlp,
+# reg1, reg2) with a tile index: K1 runs once in each of the 6 GCN layers'
+# SpMMs (scorer encoder 2, learned backbone 2, random backbone 2) and once
+# in each of their backwards (6) plus the 2 row gathers of reg2; K2 once in
+# each GCN layer (its backward is a row gather, no launch); K6 scores every
+# tile slot; K3 / K5 are the head on the q sampled edges, forward/backward
+TRAIN_LAUNCHES = {"scatter_add": 14, "segment_sum_scalar": 6,
+                  "score_head_tiles": 1, "score_head_sampled": 1,
+                  "score_head_bwd": 1}
 
 
 class SmokeFailure(RuntimeError):
@@ -88,6 +112,17 @@ def sum_tolerance(abs_sum):
     # f32 sums taken in another order (atomics): the error stays far below
     # 1e-5 of the summed magnitudes; the floor covers empty rows
     return 1e-5 * abs_sum + 1e-6
+
+
+@contextlib.contextmanager
+def no_host_sync(torch):
+    """Raise on any operation that makes the host wait for the card (a
+    device-to-host read, a blocking host-to-device copy, a stream sync)."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
 
 
 def profile_breakdown(torch, fn, top=10):
@@ -148,7 +183,7 @@ def phase_kernels(torch, g):
     returns {kernel: {main-case numbers, cases}}."""
     from sgs_gnn_tpu_torch.ops import scatter as sc
     from sgs_gnn_tpu_torch.ops import score_sampled as ss
-    dev = torch.device("cuda")
+    dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(11)
     receivers, senders = g.receivers, g.senders
     sub = torch.randperm(N_EDGES, generator=gen, device=dev)[:Q]
@@ -244,6 +279,182 @@ def phase_kernels(torch, g):
     return results
 
 
+def _rel_max(a, b):
+    return float((a.float() - b.float()).abs().max()
+                 / b.float().abs().max().clamp(min=1e-30))
+
+
+def _head_bwd_abs_sums(torch, ss, h, w1a, w1b, b1, w2, b2, s, r, dp, drop,
+                      chunk=16384):
+    """For each element of the head's VJP, the sum of the magnitudes of the
+    terms summed into it (the plain backward with every factor taken by
+    magnitude): the scale of a rounding or reordering in any one term."""
+    from sgs_gnn_tpu_torch.ops.scatter import rows_at, scatter_add_plain
+    n, f = h.shape
+    k = w1a.shape[1]
+    dev = h.device
+    dh = torch.zeros((n, f), device=dev)
+    dw1a = torch.zeros((f, k), device=dev)
+    dw1b = torch.zeros((f, k), device=dev)
+    db1 = torch.zeros(k, device=dev)
+    dw2 = torch.zeros(k, device=dev)
+    db2 = torch.zeros(1, device=dev)
+    w1a_abs, w1b_abs = w1a.float().abs().t(), w1b.float().abs().t()
+    for e0 in range(0, s.shape[0], chunk):
+        se, re_ = s[e0:e0 + chunk], r[e0:e0 + chunk]
+        hu, hv = rows_at(h, se, n), rows_at(h, re_, n)
+        prod, diff, z1 = ss._first_layer(hu, hv, w1a, w1b, b1)
+        zd, keep = ss._dropped(torch.relu(z1), drop, e0)
+        p = torch.sigmoid(zd @ w2 + b2)
+        dlogit = (dp[e0:e0 + chunk] * p * (1.0 - p)).abs()
+        db2 += dlogit.sum()
+        dw2 += (zd.abs() * dlogit[:, None]).sum(0)
+        dz1 = dlogit[:, None] * w2.abs()
+        if keep is not None:
+            dz1 = torch.where(keep, dz1 * drop.scale, 0.0)
+        dz1 = torch.where(z1 > 0.0, dz1, 0.0)
+        db1 += dz1.sum(0)
+        dw1a += prod.float().abs().t() @ dz1
+        dw1b += diff.float().abs().t() @ dz1
+        dprod, ddiff = dz1 @ w1a_abs, dz1 @ w1b_abs
+        dh += scatter_add_plain(dprod * hv.float().abs() + ddiff, se, n)
+        dh += scatter_add_plain(dprod * hu.float().abs() + ddiff, re_, n)
+    return dh, dw1a, dw1b, db1, dw2, db2
+
+
+def phase_head_kernels(torch, g, results):
+    """K3 with dropout on the sorted sample of the tile path (both sorted
+    sides), K5 on it, K6 over every tile slot: each against its plain
+    version with the same mask."""
+    from sgs_gnn_tpu_torch.ops import score_sampled as ss
+    from sgs_gnn_tpu_torch.ops import score_tiles as st
+    from sgs_gnn_tpu_torch.ops.dropout import HeadDropout
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    h = torch.randn(N_NODES, NHID, generator=gen, device=dev).relu().to(
+        torch.bfloat16)
+    fc1 = torch.randn(2 * NHID, NHID, generator=gen, device=dev) \
+        / (2 * NHID) ** 0.5
+    b1 = torch.randn(NHID, generator=gen, device=dev) * 0.1
+    fc2 = torch.randn(NHID, 1, generator=gen, device=dev) / NHID ** 0.5
+    b2 = torch.randn(1, generator=gen, device=dev) * 0.1
+    split = ss.split_head(h, fc1, b1, fc2, b2)
+    drop = HeadDropout.make(DROP, 4242, dev)
+    # the tile path's sample: q valid tile slots, sorted (senders near-sorted)
+    valid = torch.nonzero(g.tile_mask).flatten()
+    pick = valid[torch.randperm(valid.numel(), generator=gen,
+                                device=dev)[:Q]].sort().values
+    aux = g.tile_aux[pick]
+    s, r = aux[:, 0].contiguous(), aux[:, 1].contiguous()
+    head_flops = 2 * (2 * NHID * NHID)          # per edge, forward
+    head_bytes = N_NODES * NHID * 2 + 2 * NHID * NHID * 2 + 8 * NHID + 4
+
+    # K3: the grad-enabled head's forward at q=200k
+    out = ss.score_head_sampled(h, fc1, b1, fc2, b2, s, r, drop_rate=DROP,
+                                seed=drop.seed, sorted_side="senders")
+    ref = ss.score_head_plain(h, *split, s, r, drop)
+    err = float((out - ref).abs().max())
+    check(err <= 1e-4, f"score_head_sampled q=200k dropout: error {err}")
+    swapped = ss.score_head_sampled(h, fc1, b1, fc2, b2, s, r,
+                                    drop_rate=DROP, seed=drop.seed,
+                                    sorted_side="receivers")
+    err_sw = float((swapped - out).abs().max())
+    check(err_sw <= 1e-6, f"sorted_side=receivers changed p by {err_sw}")
+    k3 = dict(case="q=200k sorted senders F=K=256 bf16 dropout 0.3",
+              max_abs_err=err, receivers_side_max_abs_diff=err_sw,
+              tolerance="1e-4 abs on probabilities (same bf16-rounded "
+                        "features and mask, f32 sums in another order); "
+                        "sorted_side=receivers within 1e-6 of senders",
+              ms=cuda_ms(torch, lambda: ss.score_head_sampled(
+                  h, fc1, b1, fc2, b2, s, r, drop_rate=DROP, seed=drop.seed,
+                  sorted_side="senders")),
+              plain_ms=cuda_ms(torch, lambda: ss.score_head_plain(
+                  h, *split, s, r, drop), iters=5),
+              library_ms=None,
+              library="none: no single PyTorch call computes the head",
+              bound_ms=max((head_bytes + 12 * Q) / HBM_BPS,
+                           head_flops * Q / BF16_FLOPS) * 1e3,
+              bound_by="operations")
+    emit("kernel", name="score_head_sampled", **k3)
+    results["score_head_sampled"]["cases"].append(k3)
+
+    # K5: its backward, with the mask regenerated from the seed; at q=200k
+    # (a multiple of the kernels' edge blocks) and at q=200k-37 (a tail)
+    names = ("dh", "dW1a", "dW1b", "db1", "dw2", "db2")
+    dp_all = torch.randn(Q, generator=gen, device=dev)
+    cases = []
+    for q in (Q, Q - 37):
+        sq, rq, dp = s[:q], r[:q], dp_all[:q]
+        got = ss._head_bwd(h, *split, sq, rq, dp, drop)
+        want = ss.score_head_bwd_plain(h, *split, sq, rq, dp, drop)
+        scale = _head_bwd_abs_sums(torch, ss, h, *split, sq, rq, dp, drop)
+        rel_max = {n: _rel_max(a, b) for n, a, b in zip(names, got, want)}
+        rel_terms = {n: float(((a.float() - b.float()).abs()
+                               / c.clamp(min=1e-30)).max())
+                     for n, a, b, c in zip(names, got, want, scale)}
+        # per element: each term passes two bf16 casts (dz1, then dh_u/dh_v
+        # or the dW product); the kernel's f32 values before a cast differ
+        # from the plain version's by a few f32 ulps, so a cast lands one
+        # bf16 ulp (<= 2^-7 of the term) apart only for the rare terms
+        # that straddle a rounding boundary: 2^-9 of the summed |terms|
+        # (a term lost on a node of degree below ~500 exceeds it) + 1e-6.
+        # Whole output: 1e-3 of max|plain|.
+        for n, a, b, c in zip(names, got, want, scale):
+            err = (a.float() - b.float()).abs()
+            check(bool((err <= 2 ** -9 * c + 1e-6).all()),
+                  f"score_head_bwd q={q} {n}: error above 2^-9 of the summed "
+                  f"|terms| (max ratio {rel_terms[n]})")
+            check(rel_max[n] <= 1e-3, f"score_head_bwd q={q} {n}: max error "
+                  f"{rel_max[n]} of max|plain|, limit 1e-3")
+        cases.append(dict(
+            case=f"q={q} sorted senders F=K=256 bf16 dropout 0.3",
+            max_abs_err=max(float((a - b).abs().max())
+                            for a, b in zip(got, want)),
+            max_err_over_max_ref=rel_max, max_err_over_sum_terms=rel_terms,
+            tolerance="per element 2^-9 of the summed |terms| + 1e-6 (rare "
+                      "one-ulp flips at the two bf16 casts), and 1e-3 of "
+                      "max|plain| per output",
+            ms=cuda_ms(torch, lambda: ss._head_bwd(h, *split, sq, rq, dp,
+                                                   drop)),
+            plain_ms=cuda_ms(torch, lambda: ss.score_head_bwd_plain(
+                h, *split, sq, rq, dp, drop), iters=5),
+            library_ms=None,
+            library="none: no single PyTorch call computes the head's VJP",
+            bound_ms=max((head_bytes + 16 * q + N_NODES * NHID * 4
+                          + 2 * NHID * NHID * 4) / HBM_BPS,
+                         3 * head_flops * q / BF16_FLOPS) * 1e3,
+            bound_by="operations"))
+        emit("kernel", name="score_head_bwd", **cases[-1])
+    results["score_head_bwd"] = dict(cases[0], cases=cases)
+
+    # K6: every tile slot of the partition, tile order
+    ep = g.tile_ls.shape[0]
+    tile = (g.tile_ls, g.tile_lr, g.tile_su, g.tile_rv)
+    kw = dict(t=g.tile_t, bk=g.tile_b, drop_rate=DROP, seed=drop.seed)
+    out = st.score_head_tiles(h, fc1, b1, fc2, b2, *tile, **kw)
+    ref = st.score_head_tiles_plain(h, *split, *tile, g.tile_t, g.tile_b,
+                                    drop)
+    err = float((out - ref).abs().max())
+    check(err <= 1e-4, f"score_head_tiles: error {err} above 1e-4")
+    k6 = dict(case=f"Ep={ep} (t={g.tile_t}, b={g.tile_b}) F=K=256 bf16 "
+                   "dropout 0.3",
+              max_abs_err=err,
+              tolerance="1e-4 abs on probabilities (same bf16-rounded "
+                        "features and mask, f32 sums in another order)",
+              ms=cuda_ms(torch, lambda: st.score_head_tiles(
+                  h, fc1, b1, fc2, b2, *tile, **kw), iters=10),
+              plain_ms=cuda_ms(torch, lambda: st.score_head_tiles_plain(
+                  h, *split, *tile, g.tile_t, g.tile_b, drop), iters=3,
+                  warmup=1),
+              library_ms=None,
+              library="none: no single PyTorch call computes the head",
+              bound_ms=max((head_bytes + 12 * ep + 8 * (ep // g.tile_b))
+                           / HBM_BPS, head_flops * ep / BF16_FLOPS) * 1e3,
+              bound_by="operations")
+    emit("kernel", name="score_head_tiles", **k6)
+    results["score_head_tiles"] = dict(k6, cases=[k6])
+
+
 def phase_serve(torch, arrays):
     from sgs_gnn_tpu_torch import (Config, Graph, get_model, make_predictor,
                                    make_sparsifier)
@@ -253,24 +464,26 @@ def phase_serve(torch, arrays):
     prob = degree_prior(edge_index[0], edge_index[1], N_NODES)
     build_kw = dict(prob=prob, num_classes=CLASSES, sort_by_receiver=True)
     cfg = Config(nhid=NHID, dtype="bfloat16", num_samples_eval=DRAWS)
-    g = Graph.build(x, edge_index, y, train, ~train, None, device="cuda",
+    g = Graph.build(x, edge_index, y, train, ~train, None, device=DEVICE,
                     **build_kw)
     model = get_model("GCN", FEAT, NHID, CLASSES, cfg.drop_rate, "GCN",
-                      dtype=cfg.dtype, device="cuda",
+                      dtype=cfg.dtype, device=DEVICE,
                       generator=torch.Generator().manual_seed(0))
     sparsify = make_sparsifier(cfg, model, Q)
     predict = make_predictor(cfg, model, Q)
-    gen = torch.Generator(device="cuda").manual_seed(1)
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
 
     # the main path, once, with every launch counter at 0 just before it
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     LAUNCHES.clear()
     t0 = time.perf_counter()
-    sp = sparsify(g, gen)
+    with no_host_sync(torch):
+        sp = sparsify(g, gen)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    logits, labels = predict(g, gen)
+    with no_host_sync(torch):
+        logits, labels = predict(g, gen)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     launches = dict(LAUNCHES)
@@ -360,13 +573,162 @@ def phase_serve(torch, arrays):
     return launches
 
 
+def _frozen_sampling(pipelines, idx_t, rand_idx):
+    """Replace the training step's samplers with fixed indices (the JAX
+    package's oracle tests freeze sampling the same way); returns a
+    function that restores them."""
+    saved = pipelines.sample_edges, pipelines.sample_prior_edges
+
+    def sample_edges(generator, edge_probs, prior, q, beta, istest=False,
+                     edge_mask=None):
+        idx = idx_t.to(edge_probs.device)
+        return idx, edge_probs[idx.long()]
+
+    pipelines.sample_edges = sample_edges
+    pipelines.sample_prior_edges = \
+        lambda generator, prior, q, edge_mask=None: rand_idx.to(prior.device)
+
+    def restore():
+        pipelines.sample_edges, pipelines.sample_prior_edges = saved
+    return restore
+
+
+def _grad_check(torch, arrays, build_kw, cfg_kw, g_card):
+    """One frozen-sample step without dropout: loss and per-parameter
+    gradients on the card (bf16, kernels) against the port on the CPU
+    (f32, plain versions), same weights."""
+    from sgs_gnn_tpu_torch import Config, Graph, get_model
+    from sgs_gnn_tpu_torch.train import pipelines
+    x, edge_index, y, train = arrays
+    cfg = Config(**dict(cfg_kw, drop_rate=0.0, conditional=False))
+    rng = np.random.default_rng(3)
+    valid = np.flatnonzero(g_card.tile_mask.cpu().numpy())
+    idx_t = torch.from_numpy(np.sort(rng.choice(valid, Q, replace=False))
+                             .astype(np.int32))
+    rand_idx = torch.from_numpy(rng.choice(N_EDGES, Q, replace=False)
+                                .astype(np.int32))
+    restore = _frozen_sampling(pipelines, idx_t, rand_idx)
+    try:
+        out = {}
+        t0 = time.perf_counter()
+        for dev, g, dtype in ((DEVICE, g_card, "bfloat16"),
+                              ("cpu", None, "float32")):
+            if g is None:
+                g = Graph.build(x, edge_index, y, train, ~train, None,
+                                device="cpu", **build_kw)
+            model = get_model("GCN", FEAT, NHID, CLASSES, 0.0, "GCN",
+                              dtype=dtype, device=dev,
+                              generator=torch.Generator().manual_seed(5))
+            loss, _ = pipelines.make_learned_loss(cfg, model, Q)(
+                g, torch.Generator(device=dev).manual_seed(0))
+            names, params = zip(*model.named_parameters())
+            grads = torch.autograd.grad(loss, params)
+            out[dtype] = (float(loss.detach()),
+                          {n: gr.float().cpu() for n, gr in zip(names, grads)})
+        cpu_s = time.perf_counter() - t0
+    finally:
+        restore()
+    (loss_c, g_c), (loss_f, g_f) = out["bfloat16"], out["float32"]
+    rel = {n: float((g_c[n] - g_f[n]).norm() / g_f[n].norm().clamp(min=1e-30))
+           for n in g_f}
+    loss_rel = abs(loss_c - loss_f) / abs(loss_f)
+    emit("grad_check", loss_card_bf16=loss_c, loss_cpu_f32=loss_f,
+         loss_rel_err=loss_rel, grad_rel_l2_err=rel, seconds=cpu_s,
+         note="sample frozen, dropout off, conditional off (every "
+              "parameter gets a gradient)")
+    # bf16 rounds inputs, weights, the head's features and casts and every
+    # projection to 8 significant bits; over the encoder, the head's
+    # backward (dz1, dh_u/dh_v, dW1a/dW1b cast to bf16) and two GCN layers
+    # that leaves ~1e-2 relative on gradients
+    check(loss_rel <= 1e-2, f"grad_check: loss card {loss_c} vs cpu "
+                            f"{loss_f} (limit 1% relative)")
+    bad = {n: e for n, e in rel.items() if not e <= GRAD_REL_TOL}
+    check(not bad, f"grad_check: gradients off by more than "
+                   f"{GRAD_REL_TOL} (relative L2): {bad}")
+
+
+def phase_train(torch, arrays):
+    from sgs_gnn_tpu_torch import (Config, DualOptimizer, Graph, get_model,
+                                   make_train_step)
+    from sgs_gnn_tpu_torch.data import degree_prior
+    from sgs_gnn_tpu_torch.ops._build import LAUNCHES
+    x, edge_index, y, train = arrays
+    prob = degree_prior(edge_index[0], edge_index[1], N_NODES)
+    build_kw = dict(prob=prob, num_classes=CLASSES, sort_by_receiver=True,
+                    tile_index=True)
+    # bench.py's configuration (drop_rate keeps its default, 0.3)
+    cfg_kw = dict(pipeline="hybrid", mode="learned", conditional=True,
+                  sparse_edge_mlp=True, reg1=True, reg2=True, nhid=NHID,
+                  dtype="bfloat16")
+    cfg = Config(**cfg_kw)
+    check(cfg.drop_rate == DROP, f"drop_rate {cfg.drop_rate}")
+    g = Graph.build(x, edge_index, y, train, ~train, None, device=DEVICE,
+                    **build_kw)
+    check(g.tile_t == 128 and g.tile_b == 512, "no tile index")
+    model = get_model("GCN", FEAT, NHID, CLASSES, cfg.drop_rate, "GCN",
+                      dtype=cfg.dtype, device=DEVICE,
+                      generator=torch.Generator().manual_seed(0))
+    before = [p.detach().clone() for p in model.parameters()]
+    opt = DualOptimizer.create(model, cfg.GNN, cfg.lr, cfg.weight_decay)
+    step = make_train_step(cfg, model, opt, Q, max_epoch=TRAIN_STEPS + 2)
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+
+    t0 = time.perf_counter()
+    m = step(g, 0, gen)                       # warm-up
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    check(bool(torch.isfinite(m.loss)), f"warm-up loss {float(m.loss)}")
+
+    # the main path, one step, with every launch counter at 0 just before
+    # it; any wait of the host for the card inside the step raises
+    torch.cuda.synchronize()
+    LAUNCHES.clear()
+    with no_host_sync(torch):
+        m = step(g, 1, gen)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    check(launches == TRAIN_LAUNCHES,
+          f"train launch counts {launches}, expected {TRAIN_LAUNCHES}")
+
+    torch.cuda.reset_peak_memory_stats()
+    metrics = []
+    t0 = time.perf_counter()
+    for i in range(TRAIN_STEPS):
+        metrics.append(step(g, 2 + i, gen))
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / TRAIN_STEPS * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    losses = torch.stack([mt.loss for mt in metrics]).cpu()
+    gates = torch.stack([mt.conditional_update for mt in metrics]).cpu()
+    check(bool(torch.isfinite(losses).all()), f"losses {losses.tolist()}")
+    still = [n for (n, p), b in zip(model.named_parameters(), before)
+             if torch.equal(p.detach(), b)]
+    check(not still, f"parameters that did not move: {still}")
+    emit("train", nodes=N_NODES, edges=N_EDGES, tile_slots=g.tile_ls.shape[0],
+         features=FEAT, nhid=NHID, classes=CLASSES, q=Q, dtype=cfg.dtype,
+         drop_rate=cfg.drop_rate, steps=TRAIN_STEPS, first_step_ms=first_ms,
+         step_ms=step_ms, hybrid_train_edges_per_s=N_EDGES / step_ms * 1e3,
+         max_memory_allocated=peak, losses=losses.tolist(),
+         gates=gates.tolist(), launches_per_step=launches)
+    emit("profile", call="train_step", **profile_breakdown(
+        torch, lambda: step(g, TRAIN_STEPS + 2, gen)))
+    _grad_check(torch, arrays, build_kw, cfg_kw, g)
+    return launches
+
+
 KERNELS = {
     "scatter_add": ("sgs_gnn_tpu_torch/csrc/scatter.cu",
                     "sgs_gnn_tpu/ops/scatter_pallas.py:197"),
     "segment_sum_scalar": ("sgs_gnn_tpu_torch/csrc/segment_sum.cu",
                            "sgs_gnn_tpu/ops/scatter_pallas.py:265"),
+    # rows 3 and 4 (call_full and call_banded run _make_fwd_kernel)
     "score_head_sampled": ("sgs_gnn_tpu_torch/csrc/score_sampled.cu",
                            "sgs_gnn_tpu/ops/score_sampled.py:127"),
+    # row 5, full and banded
+    "score_head_bwd": ("sgs_gnn_tpu_torch/csrc/score_sampled.cu",
+                       "sgs_gnn_tpu/ops/score_sampled.py:184"),
+    "score_head_tiles": ("sgs_gnn_tpu_torch/csrc/score_tiles.cu",
+                         "sgs_gnn_tpu/ops/score_tiles.py:115"),
 }
 
 
@@ -384,21 +746,28 @@ def main():
 
     arrays = build_partition()
     x, edge_index, y, train = arrays
-    g = Graph.build(x, edge_index, y, train, ~train, None, device="cuda",
-                    sort_by_receiver=True)
+    g = Graph.build(x, edge_index, y, train, ~train, None, device=DEVICE,
+                    sort_by_receiver=True, tile_index=True)
     kernels = phase_kernels(torch, g)
+    phase_head_kernels(torch, g, kernels)
     del g
-    launches = phase_serve(torch, arrays)
+    serve_launches = phase_serve(torch, arrays)
+    train_launches = phase_train(torch, arrays)
 
     line = []
     for name, (source, replaces) in KERNELS.items():
-        k = kernels[name]
+        # the case at the training path's shapes where a kernel has several
+        k = kernels[name]["cases"][-1] if name == "score_head_sampled" \
+            else kernels[name]
         line.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=launches.get(name, 0), max_abs_err=k["max_abs_err"],
-            ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
+            launches=train_launches.get(name, 0),
+            launches_by_path={"serve": serve_launches.get(name, 0),
+                              "train_step": train_launches.get(name, 0)},
+            max_abs_err=k["max_abs_err"], ms=k["ms"],
+            plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
             bound_by=k["bound_by"], library_ms=k["library_ms"],
-            matched=True, case=k["case"], cases=k["cases"]))
+            matched=True, case=k["case"], cases=kernels[name]["cases"]))
     print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

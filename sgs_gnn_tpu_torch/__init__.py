@@ -8,8 +8,11 @@ of the kernels. Kernels under ``csrc/`` are built at first use on a card
 (``ops/_build.py``).
 """
 from .core import Config, Graph
+from .eval import aggregate_eval, make_eval_step
 from .models import get_model, params_from_jax
 from .run import make_predictor, make_sparsifier
+from .train import DualOptimizer, make_train_step
 
 __all__ = ["Config", "Graph", "get_model", "params_from_jax",
-           "make_sparsifier", "make_predictor"]
+           "make_sparsifier", "make_predictor", "DualOptimizer",
+           "make_train_step", "make_eval_step", "aggregate_eval"]

@@ -6,8 +6,8 @@ Conventions as in the JAX package: a COO edge list ``senders`` /
 edges are self-loops on ``pad_edge_node`` with ``edge_mask=False`` and zero
 prior. ``Graph.build`` takes host numpy arrays and applies the same padding,
 stable receiver sort, ``receiver_band`` and packed ``edge_aux`` table as the
-JAX ``Graph.build``. The tile-index fields of the fused tile-pair score
-kernel are built by the training slice; ``build`` leaves them ``None``.
+JAX ``Graph.build``; with ``tile_index=True`` it also fills the tile-pair
+index of the tile score kernel (``ops/score_tiles.py``).
 """
 from __future__ import annotations
 
@@ -19,6 +19,7 @@ import torch
 
 from .device import resolve_device
 from ..ops.scatter import required_band
+from ..ops.score_tiles import build_tile_index
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,7 +38,9 @@ class Graph:
     test_mask: torch.Tensor    # (N,) bool
     prob: torch.Tensor         # (E,) float32 sampling prior
     edge_mask: torch.Tensor    # (E,) bool; False on padding edges
-    # tile-pair index of the fused full-E score kernel (training slice)
+    # tile-pair index of the tile score kernel (ops/score_tiles.py), in
+    # tile order: local ids, per-block tile ids, original edge ids, the
+    # prior and validity permuted into tile space
     tile_ls: Optional[torch.Tensor] = None
     tile_lr: Optional[torch.Tensor] = None
     tile_su: Optional[torch.Tensor] = None
@@ -46,7 +49,8 @@ class Graph:
     tile_prob: Optional[torch.Tensor] = None
     tile_mask: Optional[torch.Tensor] = None
     # (E, 3) int32 [sender, receiver, flags]: bit0 = both endpoints train,
-    # bit1 = same label, bit2 = valid (edge_mask)
+    # bit1 = same label, bit2 = valid (edge_mask); tile_aux is its tile-order
+    # gather with bit2 from tile space (padding slots map to edge 0)
     edge_aux: Optional[torch.Tensor] = None
     tile_aux: Optional[torch.Tensor] = None
     num_classes: int = 0
@@ -66,10 +70,14 @@ class Graph:
     def build(x, edge_index, y, train_mask=None, val_mask=None,
               test_mask=None, prob=None, num_classes: Optional[int] = None,
               pad_edges_to: Optional[int] = None, pad_edge_node: int = 0,
-              sort_by_receiver: bool = False, device="cuda") -> "Graph":
+              sort_by_receiver: bool = False, tile_index: bool = False,
+              tile_t: int = 128, tile_b: int = 512,
+              device="cuda") -> "Graph":
         """Construct from host numpy arrays on ``device``, optionally
-        padding the edge list and stably sorting it by receiver (all
-        per-edge arrays permuted together)."""
+        padding the edge list, stably sorting it by receiver (all per-edge
+        arrays permuted together) and building the tile-pair index
+        (``tile_index``; left empty when the padded layout would exceed
+        1.35 E, as in the JAX package)."""
         dev = resolve_device(device)
         x = np.asarray(x, dtype=np.float32)
         edge_index = np.asarray(edge_index, dtype=np.int32)
@@ -115,9 +123,25 @@ class Graph:
         def t(a):
             return torch.as_tensor(np.ascontiguousarray(a), device=dev)
 
+        tiles = {}
+        if tile_index and edge_index.shape[1]:
+            ti = build_tile_index(s_, r_, n, t=tile_t, b=tile_b)
+            if ti is not None:
+                tmask = ti.valid & edge_mask[ti.perm]
+                tile_aux = edge_aux[ti.perm]
+                tile_aux[:, 2] = (tile_aux[:, 2] & 3) | \
+                    (tmask.astype(np.int32) << 2)
+                tiles = dict(
+                    tile_ls=t(ti.ls), tile_lr=t(ti.lr), tile_su=t(ti.su),
+                    tile_rv=t(ti.rv), tile_perm=t(ti.perm),
+                    tile_prob=t(np.where(ti.valid, prob[ti.perm],
+                                         0.0).astype(np.float32)),
+                    tile_mask=t(tmask), tile_aux=t(tile_aux),
+                    tile_t=ti.t, tile_b=ti.b)
+
         return Graph(
             x=t(x), senders=t(s_), receivers=t(r_), y=t(y),
             train_mask=t(train_mask), val_mask=t(val_mask),
             test_mask=t(test_mask), prob=t(prob), edge_mask=t(edge_mask),
             edge_aux=t(edge_aux), num_classes=int(num_classes),
-            receiver_band=int(receiver_band))
+            receiver_band=int(receiver_band), **tiles)

@@ -3,7 +3,7 @@
 scorer).
 
 Submodule names follow the JAX tree (``gcn1``/``gcn2``/``edge_prob_mlp``):
-the dual optimizer of the training slice partitions parameters by name, and
+the dual optimizer (``train/optim.py``) partitions parameters by name, and
 ``models.convert.params_from_jax`` maps the flax tree onto them.
 """
 from __future__ import annotations
@@ -14,6 +14,7 @@ from torch import nn
 from .layers import GCNConv
 from .scorers import EdgeProbGCN
 from ..core.device import resolve_device, torch_dtype
+from ..ops.dropout import dropout
 
 
 class GNNModel(nn.Module):
@@ -31,17 +32,40 @@ class GNNModel(nn.Module):
         self.gcn2 = GCNConv(hidden_dim, num_classes, dtype, generator)
 
     def forward(self, x, senders, receivers, edge_weight=None,
-                deterministic: bool = True):
+                deterministic: bool = True, generator=None):
         h = torch.relu(self.gcn1(x, senders, receivers, edge_weight))
-        h = nn.functional.dropout(h, self.dropout_prob,
-                                  training=not deterministic)
+        h = dropout(h, self.dropout_prob, generator,
+                    training=not deterministic)
         return self.gcn2(h, senders, receivers, edge_weight)
 
     def score_edges(self, x, prop_senders, prop_receivers, score_senders,
-                    score_receivers, deterministic: bool = True):
+                    score_receivers, deterministic: bool = True,
+                    generator=None):
         return self.edge_prob_mlp(x, prop_senders, prop_receivers,
                                   score_senders, score_receivers,
-                                  deterministic)
+                                  deterministic, generator)
+
+    def encode_scorer(self, x, prop_senders, prop_receivers,
+                      deterministic: bool = True, generator=None):
+        """Scorer encoder only -> node embeddings (hybrid_rescore path)."""
+        return self.edge_prob_mlp.encode(x, prop_senders, prop_receivers,
+                                         deterministic, generator)
+
+    def score_from_embeddings(self, h, senders, receivers,
+                              deterministic: bool = True,
+                              sorted_side: str = "", generator=None):
+        """Score head only, over precomputed scorer embeddings."""
+        return self.edge_prob_mlp.score_from(h, senders, receivers,
+                                             deterministic, sorted_side,
+                                             generator)
+
+    def score_tiles_from_embeddings(self, h, tile_ls, tile_lr, tile_su,
+                                    tile_rv, t: int, bk: int,
+                                    deterministic: bool = True, seed=0):
+        """Detached tile-pair scoring of every slot (ops/score_tiles.py)."""
+        return self.edge_prob_mlp.score_tiles(h, tile_ls, tile_lr, tile_su,
+                                              tile_rv, t, bk, deterministic,
+                                              seed)
 
 
 def get_model(gnn: str, in_channels: int, hidden_dim: int, num_classes: int,

@@ -6,13 +6,20 @@ edge (u, v) -> sigmoid(fc2(relu(fc1([h_u * h_v || h_u - h_v])))):
 
     encode(x, prop_senders, prop_receivers) -> h         (N, hidden)
     score_from(h, senders, receivers)       -> probs     (E,)
+    score_tiles(h, tile index)              -> probs     (Ep,) tile order
     forward(...) == score_from(encode(...), score edges)
 
-``score_from`` always goes through ``ops.score_head_sampled``, which
-launches the CUDA kernel for tensors on the card and runs the plain version
-on the CPU. fc1 is stored as one ``nn.Linear(2F, K)`` (the JAX tree's
-concat kernel, transposed) and split into its product half W1a and
-difference half W1b at the call, so no (E, 2F) concat is formed.
+``score_from`` always goes through ``ops.score_head_sampled`` (K3 forward,
+K5 backward on the card) and ``score_tiles`` through
+``ops.score_head_tiles`` (K6, detached); on the CPU both run their plain
+versions. fc1 is stored as one ``nn.Linear(2F, K)`` (the JAX tree's concat
+kernel, transposed) and split into its product half W1a and difference half
+W1b at the call, so no (E, 2F) concat is formed.
+
+Training-mode randomness comes from an explicit ``torch.Generator``: the
+encoder's dropout draws from it, and the head's dropout seed is one int32
+drawn from it on the tensors' device (the kernels read it there, so no step
+waits for the card).
 """
 from __future__ import annotations
 
@@ -22,7 +29,9 @@ import torch
 from torch import nn
 
 from .layers import GCNConv
+from ..ops.dropout import dropout
 from ..ops.score_sampled import score_head_sampled
+from ..ops.score_tiles import score_head_tiles
 
 _TRUNC_STD = 0.87962566103423978   # std of a unit normal truncated to [-2, 2]
 
@@ -48,11 +57,30 @@ class _ScoreHead(nn.Module):
             lecun_normal_(lin.weight, generator)
             nn.init.zeros_(lin.bias)
 
-    def forward(self, h, senders, receivers, deterministic: bool = True):
+    def forward(self, h, senders, receivers, deterministic: bool = True,
+                sorted_side: str = "", generator=None):
         rate = 0.0 if deterministic else self.dropout_prob
+        seed = draw_seed(generator, h.device) if rate > 0.0 else 0
         return score_head_sampled(h, self.fc1.weight.t(), self.fc1.bias,
                                   self.fc2.weight.t(), self.fc2.bias,
-                                  senders, receivers, drop_rate=rate)
+                                  senders, receivers, drop_rate=rate,
+                                  seed=seed, sorted_side=sorted_side)
+
+    def tiles(self, h, tile_ls, tile_lr, tile_su, tile_rv, t: int, bk: int,
+              deterministic: bool = True, seed=0):
+        rate = 0.0 if deterministic else self.dropout_prob
+        return score_head_tiles(h, self.fc1.weight.t(), self.fc1.bias,
+                                self.fc2.weight.t(), self.fc2.bias, tile_ls,
+                                tile_lr, tile_su, tile_rv, t=t, bk=bk,
+                                drop_rate=rate, seed=seed)
+
+
+def draw_seed(generator, device):
+    """One dropout seed in [0, 2**31 - 1) as a (1,) int32 tensor on
+    ``device``, drawn from ``generator`` (jax.random.randint's range in the
+    JAX scorer)."""
+    return torch.randint(0, 2 ** 31 - 1, (1,), generator=generator,
+                         device=device, dtype=torch.int32)
 
 
 class EdgeProbGCN(nn.Module):
@@ -71,18 +99,28 @@ class EdgeProbGCN(nn.Module):
         self.gcn2 = GCNConv(hidden_dim, hidden_dim, dtype, generator)
 
     def encode(self, x, prop_senders, prop_receivers,
-               deterministic: bool = True):
+               deterministic: bool = True, generator=None):
         h = self.gcn1(x, prop_senders, prop_receivers)
-        h = nn.functional.dropout(torch.relu(h), self.dropout_prob,
-                                  training=not deterministic)
+        h = dropout(torch.relu(h), self.dropout_prob, generator,
+                    training=not deterministic)
         h = torch.relu(self.gcn2(h, prop_senders, prop_receivers))
         return h.to(self.dtype)
 
-    def score_from(self, h, senders, receivers, deterministic: bool = True):
-        return self.head(h.to(self.dtype), senders, receivers, deterministic)
+    def score_from(self, h, senders, receivers, deterministic: bool = True,
+                   sorted_side: str = "", generator=None):
+        return self.head(h.to(self.dtype), senders, receivers, deterministic,
+                         sorted_side, generator)
+
+    def score_tiles(self, h, tile_ls, tile_lr, tile_su, tile_rv, t: int,
+                    bk: int, deterministic: bool = True, seed=0):
+        """Detached tile-pair scoring of every slot, in tile order."""
+        return self.head.tiles(h.to(self.dtype), tile_ls, tile_lr, tile_su,
+                               tile_rv, t, bk, deterministic, seed)
 
     def forward(self, x, prop_senders, prop_receivers, score_senders,
-                score_receivers, deterministic: bool = True):
-        h = self.encode(x, prop_senders, prop_receivers, deterministic)
+                score_receivers, deterministic: bool = True,
+                generator=None):
+        h = self.encode(x, prop_senders, prop_receivers, deterministic,
+                        generator)
         return self.score_from(h, score_senders, score_receivers,
-                               deterministic)
+                               deterministic, generator=generator)

@@ -31,7 +31,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("scatter.cu", "segment_sum.cu", "score_sampled.cu")
+SOURCES = ("scatter.cu", "segment_sum.cu", "score_sampled.cu",
+           "score_tiles.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -40,12 +41,20 @@ LAUNCHES: collections.Counter = collections.Counter()
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_U = ctypes.c_uint
+_F = ctypes.c_float
 # C signatures: name -> argtypes (every function returns cudaError_t as int)
 _SIGNATURES = {
     "sgs_scatter_add": [_P, _I, _P, _P, _L, _I, _I, _P],
     "sgs_segment_sum_scalar": [_P, _P, _P, _L, _I, _P],
-    "sgs_score_head_fwd": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
-                           _L, _I, _I, _I, _P],
+    "sgs_score_head_fwd": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _U, _F,
+                           _P, _L, _I, _I, _I, _P],
+    "sgs_score_head_bwd": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _U,
+                           _F, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I,
+                           _P],
+    "sgs_score_head_tiles": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                             _I, _P, _U, _F, _P, _L, _I, _I, _I, _P],
+    "sgs_dropout_bits": [_P, _P, _P, _L, _P],
 }
 
 
@@ -129,15 +138,15 @@ def call(kernel: str, fn_name: str, device: torch.device, *args) -> None:
 
 
 def check_cuda(name: str, *tensors: torch.Tensor) -> None:
-    """The kernels take contiguous tensors on one card and no autograd
-    (their backward comes with the training slice)."""
+    """The kernels take contiguous tensors on one card. They are called
+    from inside ``autograd.Function``s (ops/scatter.py, edge_gather.py,
+    score_sampled.py) or under ``no_grad`` (score_tiles.py), so autograd
+    never records a kernel launch itself."""
     dev = tensors[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: the CUDA kernel got a {dev} tensor")
     for t in tensors:
         if t.device != dev:
             raise ValueError(f"{name}: tensors on {t.device} and {dev}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: expects contiguous tensors")
-        if t.requires_grad and torch.is_grad_enabled():
-            raise NotImplementedError(
-                f"{name}: the CUDA kernel has no backward yet; call it under "
-                "torch.no_grad()")

@@ -23,6 +23,11 @@ histogram in shared memory and flushes it with one global atomic per
 touched node; for N too large for shared memory it uses global atomics.
 
 Ids outside [0, N) are dropped, as ``jax.ops.segment_sum`` drops them.
+
+Both are differentiable in their values through ``autograd.Function``s:
+the VJP of a segment sum is a gather of the cotangent at the ids
+(``scatter_pallas.py:332-333``), zero for dropped ids. The gather is a plain
+row index on either device: it is no TPU kernel's counterpart.
 """
 from __future__ import annotations
 
@@ -67,11 +72,53 @@ def scatter_add_plain(vals, ids, num_segments: int):
     return out.index_add_(0, ids[keep].long(), vals[keep].float())
 
 
+def rows_at(g, ids, num_segments: int):
+    """``g[ids]`` with zero rows where an id is outside [0, num_segments):
+    the VJP of both segment sums, and how the head kernels read such ids."""
+    keep = _in_range(ids, num_segments)
+    rows = g[ids.clamp(0, max(num_segments - 1, 0)).long()]
+    return torch.where(keep.reshape((-1,) + (1,) * (g.dim() - 1)), rows, 0)
+
+
+class _ScatterAdd(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, vals, ids, num_segments):
+        ctx.save_for_backward(ids)
+        ctx.num_segments = num_segments
+        ctx.vals_dtype = vals.dtype
+        return _scatter_add(vals, ids, num_segments)
+
+    @staticmethod
+    def backward(ctx, g):
+        ids, = ctx.saved_tensors
+        return rows_at(g, ids, ctx.num_segments).to(ctx.vals_dtype), None, \
+            None
+
+
+class _SegmentSumScalar(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, w, ids, num_segments):
+        ctx.save_for_backward(ids)
+        ctx.num_segments = num_segments
+        ctx.w_dtype = w.dtype
+        return _segment_sum_scalar(w, ids, num_segments)
+
+    @staticmethod
+    def backward(ctx, g):
+        ids, = ctx.saved_tensors
+        return rows_at(g, ids, ctx.num_segments).to(ctx.w_dtype), None, None
+
+
 def scatter_add(vals, ids, num_segments: int):
-    """(E, F) rows summed by ``ids`` into (num_segments, F) float32."""
+    """(E, F) rows summed by ``ids`` into (num_segments, F) float32;
+    differentiable in ``vals``."""
     if vals.dim() != 2 or ids.shape != (vals.shape[0],):
         raise ValueError(f"scatter_add: vals {tuple(vals.shape)} and ids "
                          f"{tuple(ids.shape)} do not match")
+    return _ScatterAdd.apply(vals, ids, num_segments)
+
+
+def _scatter_add(vals, ids, num_segments: int):
     if vals.device.type == "cpu":
         return scatter_add_plain(vals, ids, num_segments)
     _build.check_cuda("scatter_add", vals, ids)
@@ -98,10 +145,15 @@ def segment_sum_scalar_plain(w, ids, num_segments: int):
 
 
 def segment_sum_scalar(w, ids, num_segments: int):
-    """(E,) weights summed by ``ids`` into (num_segments,) float32."""
+    """(E,) weights summed by ``ids`` into (num_segments,) float32;
+    differentiable in ``w``."""
     if w.dim() != 1 or ids.shape != w.shape:
         raise ValueError(f"segment_sum_scalar: w {tuple(w.shape)} and ids "
                          f"{tuple(ids.shape)} do not match")
+    return _SegmentSumScalar.apply(w, ids, num_segments)
+
+
+def _segment_sum_scalar(w, ids, num_segments: int):
     if w.device.type == "cpu":
         return segment_sum_scalar_plain(w, ids, num_segments)
     _build.check_cuda("segment_sum_scalar", w, ids)

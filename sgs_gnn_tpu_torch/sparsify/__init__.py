@@ -1,3 +1,5 @@
-from .sampling import sample_edges, sample_prior_edges
+from .sampling import (random_edges, sample_edges, sample_prior_edges,
+                       temperature_at)
 
-__all__ = ["sample_edges", "sample_prior_edges"]
+__all__ = ["random_edges", "sample_edges", "sample_prior_edges",
+           "temperature_at"]

@@ -13,7 +13,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..ops.sampling_ops import gumbel_topk
+from ..ops.sampling_ops import gumbel_topk, uniform_topk
 
 _EPS = 1e-12
 
@@ -52,3 +52,21 @@ def sample_prior_edges(generator, prior, q: int,
               if edge_mask is not None else prior)
     p = torch.softmax(logits, dim=0)
     return gumbel_topk(generator, p, q, mask=edge_mask)
+
+
+def random_edges(generator, num_edges: int, q: int,
+                 edge_mask: Optional[torch.Tensor] = None,
+                 device="cuda") -> torch.Tensor:
+    """Uniform q-subset of the edges (reference random_edge_sampling)."""
+    if edge_mask is not None:
+        device = edge_mask.device
+    return uniform_topk(generator, num_edges, q, mask=edge_mask,
+                        device=device)
+
+
+def temperature_at(epoch, max_epoch: int, t_init: float,
+                   t_min: float) -> float:
+    """Linear annealing ``max(t_min, t_init - epoch*(t_init-t_min)/max_epoch)``
+    (tracked for parity; the live sampler does not read it)."""
+    r = (t_init - t_min) / max_epoch
+    return max(t_min, t_init - epoch * r)

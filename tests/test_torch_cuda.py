@@ -4,17 +4,29 @@ Marked ``cuda``; each test skips without a card. These cover the ragged
 and odd shapes that the full-width run in ``chip_smoke.py`` does not: F not
 a multiple of the column tile, K not a multiple of the hidden tile, q not a
 multiple of the edge tile, ids out of range, N above the shared-memory
-histogram. On the machine with the card (no JAX there, so without the
-repository's conftest):
+histogram, N not a multiple of the tile rows, padding slots. The head
+kernels run with dropout: kernel and plain version draw the same mask from
+the same seed, so only the order of f32 sums (and, in bf16, the roundings
+that follow them) separates them. On the machine with the card (no JAX
+there, so without the repository's conftest):
 
     python -m pytest -o addopts="" --noconftest -m cuda tests/test_torch_cuda.py -q
 """
 import pytest
 import torch
 
+from sgs_gnn_tpu_torch.ops import dropout as dr
+from sgs_gnn_tpu_torch.ops import edge_gather as eg
 from sgs_gnn_tpu_torch.ops import scatter as sc
 from sgs_gnn_tpu_torch.ops import score_sampled as ss
+from sgs_gnn_tpu_torch.ops import score_tiles as st
 from sgs_gnn_tpu_torch.ops._build import LAUNCHES
+
+# (seed, counter, hash32) computed from csrc/common.cuh's definition; the
+# same table is held against the torch twin in tests/test_torch_tiles.py
+HASH32_TABLE = [(0, 0, 1107962638), (0, 1, 1320027387), (1, 0, 1613265885),
+                (12345, 255, 2028518022), (2147483646, 272891903, 2596186920),
+                (7, 4294967301, 2906286678), (99, 1099511640121, 4220018807)]
 
 pytestmark = pytest.mark.cuda
 
@@ -74,25 +86,156 @@ def test_segment_sum_scalar_kernel(card, n):
                        sc.segment_sum_scalar_plain(ones, ids, n))
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n,f,k,q", [(37, 40, 50, 77), (2048, 256, 256, 4099),
-                                     (9, 3, 300, 64), (100, 130, 1, 1)])
-def test_score_head_kernel(card, dtype, n, f, k, q):
-    g = torch.Generator(device=card).manual_seed(2)
+def _head(card, g, n, f, k, dtype):
     h = torch.randn(n, f, generator=g, device=card).to(dtype)
     fc1 = torch.randn(2 * f, k, generator=g, device=card) / (2 * f) ** 0.5
     b1 = torch.randn(k, generator=g, device=card) * 0.1
     fc2 = torch.randn(k, 1, generator=g, device=card) / k ** 0.5
     b2 = torch.randn(1, generator=g, device=card) * 0.1
-    s = torch.randint(0, n, (q,), generator=g, device=card, dtype=torch.int32)
-    r = torch.randint(0, n, (q,), generator=g, device=card, dtype=torch.int32)
+    return h, fc1, b1, fc2, b2
+
+
+def _ids(card, g, n, q, lo=0, hi=None):
+    return torch.randint(lo, n if hi is None else hi, (q,), generator=g,
+                         device=card, dtype=torch.int32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,f,k,q", [(37, 40, 50, 77), (2048, 256, 256, 4099),
+                                     (9, 3, 300, 64), (100, 130, 1, 1)])
+@pytest.mark.parametrize("drop_rate", [0.0, 0.3])
+def test_score_head_kernel(card, dtype, n, f, k, q, drop_rate):
+    g = torch.Generator(device=card).manual_seed(2)
+    h, fc1, b1, fc2, b2 = _head(card, g, n, f, k, dtype)
+    s, r = _ids(card, g, n, q, -1, n + 2), _ids(card, g, n, q, -1, n + 2)
     before = LAUNCHES["score_head_sampled"]
-    out = ss.score_head_sampled(h, fc1, b1, fc2, b2, s, r)
+    out = ss.score_head_sampled(h, fc1, b1, fc2, b2, s, r,
+                                drop_rate=drop_rate, seed=17)
     torch.cuda.synchronize()
     assert LAUNCHES["score_head_sampled"] == before + 1
-    ref = ss.score_head_plain(h, *ss.split_head(h, fc1, b1, fc2, b2), s, r)
-    # same bf16-rounded features on both sides; f32 sums in another order
+    drop = dr.HeadDropout.make(drop_rate, 17, card)
+    ref = ss.score_head_plain(h, *ss.split_head(h, fc1, b1, fc2, b2), s, r,
+                              drop)
+    # same bf16-rounded features and mask on both sides; f32 sums in
+    # another order
     torch.testing.assert_close(out, ref, rtol=0, atol=1e-4)
+    for side in ("senders", "receivers"):
+        other = ss.score_head_sampled(h, fc1, b1, fc2, b2, s, r,
+                                      drop_rate=drop_rate, seed=17,
+                                      sorted_side=side)
+        torch.testing.assert_close(other, out, rtol=0, atol=1e-6)
+
+
+def _max_rel(a, b):
+    return float((a - b).abs().max() / b.abs().max().clamp(min=1e-12)
+                 .detach())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,f,k,q", [(37, 40, 50, 77), (2048, 256, 256, 5000),
+                                     (9, 3, 300, 64), (100, 130, 1, 1),
+                                     (300, 260, 20, 1000)])
+@pytest.mark.parametrize("side", ["senders", "receivers"])
+def test_score_head_bwd_kernel(card, dtype, n, f, k, q, side):
+    g = torch.Generator(device=card).manual_seed(3)
+    h, fc1, b1, fc2, b2 = _head(card, g, n, f, k, dtype)
+    s, r = _ids(card, g, n, q, -1, n + 2), _ids(card, g, n, q, -1, n + 2)
+    if side == "senders":
+        s = s.sort().values
+    else:
+        r = r.sort().values
+    dp = torch.randn(q, generator=g, device=card)
+    params = [t.clone().requires_grad_() for t in (h.float(), fc1, b1, fc2,
+                                                    b2)]
+    hh = params[0].to(dtype)
+    before = LAUNCHES["score_head_bwd"]
+    out = ss.score_head_sampled(hh, *params[1:], s, r, drop_rate=0.3,
+                                seed=5, sorted_side=side)
+    got = torch.autograd.grad(out, params, dp)
+    torch.cuda.synchronize()
+    assert LAUNCHES["score_head_bwd"] == before + 1
+    # the plain backward on the same (swapped) inputs
+    w1a, w1b, pb1, w2, pb2 = ss.split_head(hh, fc1, b1, fc2, b2)
+    ps, pr = (s, r) if side == "senders" else (r, s)
+    if side == "receivers":
+        w1b = -w1b
+    dh, dw1a, dw1b, db1, dw2, db2 = ss.score_head_bwd_plain(
+        hh, w1a, w1b, pb1, w2, pb2, ps, pr, dp,
+        dr.HeadDropout.make(0.3, 5, card))
+    if side == "receivers":
+        dw1b = -dw1b
+    want = [dh.to(dtype).float(),
+            torch.cat([dw1a.to(dtype), dw1b.to(dtype)]).float(),
+            db1, dw2[:, None], db2]
+    # f32 sums in another order (atomics): 1e-4 of max|plain|. In bf16 that
+    # order can also move a rounding by one bf16 ulp (<= 2^-7 of the value)
+    # at a cast before the sums (dz1, dh_u/dh_v) and at the output's cast:
+    # per element 2^-6 of |plain| + 1e-3 of max|plain|
+    for name, a, b in zip(("dh", "dfc1", "db1", "dfc2", "db2"), got, want):
+        err = (a.float() - b).abs()
+        if dtype == torch.float32:
+            assert _max_rel(a.float(), b) <= 1e-4, (name, _max_rel(a.float(),
+                                                                b))
+        else:
+            tol = 2 ** -6 * b.abs() + 1e-3 * b.abs().max()
+            assert bool((err <= tol).all()), (name, _max_rel(a.float(), b))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,t,b,f,k", [(50, 16, 32, 24, 40),
+                                       (2048, 128, 512, 256, 256),
+                                       (130, 64, 64, 33, 7)])
+def test_score_tiles_kernel(card, dtype, n, t, b, f, k):
+    import numpy as np
+    rng = np.random.default_rng(4)
+    e = 40 * n
+    ti = st.build_tile_index(rng.integers(0, n, e), rng.integers(0, n, e), n,
+                             t=t, b=b, max_overhead=100.0)
+    assert not ti.valid.all()                       # padding slots present
+    tl = [torch.from_numpy(a).to(card) for a in (ti.ls, ti.lr, ti.su, ti.rv)]
+    g = torch.Generator(device=card).manual_seed(4)
+    h, fc1, b1, fc2, b2 = _head(card, g, n, f, k, dtype)
+    before = LAUNCHES["score_head_tiles"]
+    out = st.score_head_tiles(h, fc1, b1, fc2, b2, *tl, t=t, bk=b,
+                              drop_rate=0.3, seed=9)
+    torch.cuda.synchronize()
+    assert LAUNCHES["score_head_tiles"] == before + 1
+    assert not out.requires_grad
+    ref = st.score_head_tiles_plain(h, *ss.split_head(h, fc1, b1, fc2, b2),
+                                    *tl, t, b,
+                                    dr.HeadDropout.make(0.3, 9, card))
+    torch.testing.assert_close(out, ref, rtol=0, atol=1e-4)
+
+
+def test_hash32_table_on_card(card):
+    for seed, counter, want in HASH32_TABLE:
+        got = dr.hash32(torch.tensor([seed], device=card, dtype=torch.int32),
+                        torch.tensor([counter], device=card))
+        assert int(got[0]) == want, (seed, counter)
+    ctr = torch.arange(0, 1 << 20, 7919, device=card)
+    seed = torch.tensor([123456], device=card, dtype=torch.int32)
+    assert torch.equal(dr.hash32(seed, ctr).cpu(),
+                       dr.hash32_plain(123456, ctr.cpu()))
+
+
+def test_segment_sum_autograd_on_card(card):
+    g = torch.Generator(device=card).manual_seed(6)
+    n, e, f = 300, 5000, 70
+    x = torch.randn(n, f, generator=g, device=card, requires_grad=True)
+    w = torch.rand(e, generator=g, device=card, requires_grad=True)
+    ids = _ids(card, g, n, e)
+    cot = torch.randn(n, f, generator=g, device=card)
+    rows = eg.gather_rows(x, ids)
+    deg = sc.segment_sum_scalar(w, ids, n)
+    before = LAUNCHES["scatter_add"]
+    dx, = torch.autograd.grad(rows, x, torch.randn_like(rows))
+    assert LAUNCHES["scatter_add"] == before + 1     # gather_rows' VJP is K1
+    dw, = torch.autograd.grad(deg, w, cot[:, 0])
+    assert torch.equal(dw, cot[:, 0][ids.long()])
+    vals = torch.randn(e, f, generator=g, device=card, requires_grad=True)
+    dv, = torch.autograd.grad(sc.scatter_add(vals, ids, n), vals, cot)
+    assert torch.equal(dv, cot[ids.long()])
+    assert dx.shape == x.shape
 
 
 def test_kernels_raise_on_bad_input(card):
@@ -104,11 +247,13 @@ def test_kernels_raise_on_bad_input(card):
                                              device=card), 2)
     h = torch.zeros(4, 3, device=card)
     ids = torch.zeros(2, dtype=torch.int32, device=card)
-    with pytest.raises(NotImplementedError):
-        ss.score_head_sampled(h, torch.zeros(6, 5, device=card),
-                              torch.zeros(5, device=card),
-                              torch.zeros(5, 1, device=card),
-                              torch.zeros(1, device=card), ids, ids,
-                              drop_rate=0.5)
-    with pytest.raises(NotImplementedError):
-        sc.scatter_add(v.requires_grad_(), ids.new_zeros(4), 2)
+    head = (torch.zeros(6, 5, device=card), torch.zeros(5, device=card),
+            torch.zeros(5, 1, device=card), torch.zeros(1, device=card))
+    with pytest.raises(ValueError):
+        ss.score_head_sampled(h, *head, ids, ids, drop_rate=1.0)
+    with pytest.raises(TypeError):
+        ss.score_head_sampled(h, *head, ids.long(), ids.long())
+    with pytest.raises(ValueError):
+        ss.score_head_sampled(h, *head, ids, ids, sorted_side="both")
+    with pytest.raises(ValueError):
+        ss.score_head_sampled(h, *head, ids.cpu(), ids.cpu())  # two devices

@@ -124,14 +124,21 @@ def test_score_head_sampled_narrow_matches_reference(rng):
 
 
 def test_score_head_sampled_rejects_dropout_and_bad_shapes(rng):
+    """Dropout rates outside [0, 1), an unknown sorted side and mismatched
+    shapes raise; a rate in range is taken (tests/test_torch_tiles.py)."""
     f, k = 8, 8
     h = _t(rng.normal(size=(5, f)).astype(np.float32))
     w1, b1, w2, b2 = [_t(a) for a in _head(rng, f, k)]
     ids = torch.zeros(3, dtype=torch.int32)
-    with pytest.raises(NotImplementedError):
-        score_head_sampled(h, w1, b1, w2, b2, ids, ids, drop_rate=0.1)
+    for rate in (1.0, -0.1):
+        with pytest.raises(ValueError, match="drop_rate"):
+            score_head_sampled(h, w1, b1, w2, b2, ids, ids, drop_rate=rate)
+    with pytest.raises(ValueError, match="sorted_side"):
+        score_head_sampled(h, w1, b1, w2, b2, ids, ids, sorted_side="both")
     with pytest.raises(ValueError):
         score_head_sampled(h, w1[:f], b1, w2, b2, ids, ids)
+    assert score_head_sampled(h, w1, b1, w2, b2, ids, ids, drop_rate=0.1,
+                              seed=3).shape == (3,)
 
 
 @pytest.mark.parametrize("weighted", [False, True])
