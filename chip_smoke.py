@@ -10,32 +10,46 @@ Phases, each printing one JSON line:
   2. kernel   each kernel of the serving and training paths against its
               plain PyTorch version on the card at the path's shapes, the
               head kernels (K3, K5, K6) with dropout 0.3 (kernel and plain
-              version draw the same mask): error against the stated
+              version draw the same mask), the sorted scatter K7 (with a
+              ragged E, a band too narrow and padding ids) and the fused
+              SpMM K8 (F=256 and 41, weighted and not, the receiver-sorted
+              edge list and its reversal): error against the stated
               tolerance, and times (CUDA events) of the kernel, the plain
               version and one PyTorch library call where one exists, beside
               the kernel's bound on an H100 SXM.
-  3. serve    sparsify + predict (11 draws) at the bench partition's full
+  3. fused_spmm  GCNConv(backend="fused") forward + backward at the
+              scorer's and the backbone's widths, launch-counted, against
+              backend="auto" (outputs and gradients).
+  4. serve    sparsify + predict (11 draws) at the bench partition's full
               width (N=2048, E=1M, 602 features, nhid 256, 41 classes,
               q=200k, bf16) with random weights from a seed; launch counts of
               that one run; outputs checked for shape and finiteness and
               against the same port run on the CPU in f32. One more call of
               each under torch.profiler (a ``profile`` line each): device
               time by kernel, device busy time and idle share.
-  4. train    the learned hybrid_rescore training step (bench.py's workload:
-              conditional, sparse_edge_mlp, reg1, reg2, dropout 0.3) on the
-              same partition with its tile index: one warm-up step, the
-              launch counts of one step against the counts the path
-              implies, 20 timed steps (finite losses, parameters moved), one
-              step under torch.profiler, and one frozen-sample step without
-              dropout whose loss and gradients are held against the port on
-              the CPU in f32 (a ``grad_check`` line).
+  5. train    the learned training step of bench.py's workload
+              (conditional, sparse_edge_mlp, reg1, reg2, dropout 0.3) on the
+              same partition, for each pipeline of the learned mode:
+              hybrid_rescore (with the tile index, 20 timed steps),
+              straight_through, the exact hybrid without and with
+              hybrid_checkpoint, and two_pass (10 timed steps each): one
+              warm-up step, the launch counts of one step against the counts
+              the path implies, the timed steps (finite losses, parameters
+              moved, peak memory) and a ``profile`` line (one step under
+              torch.profiler) each; then, after every timed path, for
+              hybrid_rescore, straight_through and the exact hybrid one
+              frozen-sample step without dropout whose loss and gradients
+              are held against the port on the CPU in f32 (a ``grad_check``
+              line).
 
-Then a ``kernels`` line (every kernel: route, source, the TPU kernel it
-replaces, launches per training step, error and times) and, last, the ok
-line. Any failed check raises and the script exits nonzero without the ok
-line; without a card it exits 1 before doing anything.
+Then a ``kernels`` line (one entry per TPU kernel of the JAX package: route,
+source, the TPU kernel it replaces, launches on each path, error and times)
+and, last, the ok line. Any failed check raises and the script exits
+nonzero without the ok line; without a card it exits 1 before doing
+anything.
 """
 import contextlib
+import importlib
 import json
 import subprocess
 import sys
@@ -54,17 +68,47 @@ N_NODES, N_EDGES, FEAT, CLASSES, NHID, Q, DRAWS = (2048, 1_000_000, 602, 41,
 CPU_SUBSAMPLE = 65_536     # edges scored by the CPU f32 reference
 DROP = 0.3                 # Config.drop_rate, the head kernels' dropout
 DEVICE = "cuda"            # the card (a CPU rehearsal sets "cpu")
-TRAIN_STEPS = 20
+TRAIN_STEPS = 20           # timed steps of hybrid_rescore
+PIPELINE_STEPS = 10        # timed steps of each other pipeline
 GRAD_REL_TOL = 0.05        # grad_check: relative L2, card bf16 vs CPU f32
-# launches of one learned hybrid_rescore step (conditional, sparse_edge_mlp,
-# reg1, reg2) with a tile index: K1 runs once in each of the 6 GCN layers'
-# SpMMs (scorer encoder 2, learned backbone 2, random backbone 2) and once
-# in each of their backwards (6) plus the 2 row gathers of reg2; K2 once in
-# each GCN layer (its backward is a row gather, no launch); K6 scores every
-# tile slot; K3 / K5 are the head on the q sampled edges, forward/backward
-TRAIN_LAUNCHES = {"scatter_add": 14, "segment_sum_scalar": 6,
-                  "score_head_tiles": 1, "score_head_sampled": 1,
-                  "score_head_bwd": 1}
+FUSED_REL_TOL = 1e-2       # GCNConv fused vs auto: relative L2, bf16
+# The learned pipelines, each with bench.py's flags, and the launches of one
+# step (conditional, sparse_edge_mlp, reg1, reg2). In every pipeline K1
+# runs once in each GCN layer's SpMM and once in each backward of one that
+# has gradients, plus the 2 row gathers of reg2; K2 once in each GCN layer
+# (its backward is a row gather, no launch).
+#   hybrid_rescore (tile index): 6 layers with gradients (scorer encoder 2,
+#     learned backbone 2, random backbone 2): K1 6 + 6 + 2; K6 scores every
+#     tile slot; the head on the q sorted winners is K3 with a sorted side
+#     (row 4, "banded") and K5.
+#   straight_through, hybrid exact (with or without remat): the same 6
+#     layers; the unfused head over every edge gathers both endpoints, its
+#     backward is K1 on the senders (+1) and K7 on the sorted receivers.
+#   two_pass: pass 1 (no gradients) runs the encoder (2 layers, K1 and K2
+#     forward only) and K3 over every edge; pass 3 re-runs the encoder on
+#     the sampled subgraph with gradients and the head on the winners (K3
+#     with the receivers sorted, K5): K1 8 + 6 + 2, K2 8.
+_ROWS = {"scatter_add": 14, "segment_sum_scalar": 6}
+_UNFUSED = dict(_ROWS, scatter_add=15, scatter_add_sorted=1)
+PIPELINES = {
+    "hybrid_rescore": (dict(pipeline="hybrid"), TRAIN_STEPS, dict(
+        _ROWS, score_head_tiles=1, score_head_sampled_banded=1,
+        score_head_bwd=1)),
+    "straight_through": (dict(pipeline="straight_through"), PIPELINE_STEPS,
+                         _UNFUSED),
+    "hybrid_exact": (dict(pipeline="hybrid", hybrid_rescore=False),
+                     PIPELINE_STEPS, _UNFUSED),
+    "hybrid_exact_remat": (dict(pipeline="hybrid", hybrid_rescore=False,
+                                hybrid_checkpoint=True), PIPELINE_STEPS,
+                           _UNFUSED),
+    "two_pass": (dict(pipeline="two_pass"), PIPELINE_STEPS, dict(
+        scatter_add=16, segment_sum_scalar=8, score_head_sampled=1,
+        score_head_sampled_banded=1, score_head_bwd=1)),
+}
+GRAD_CHECKED = ("hybrid_rescore", "straight_through", "hybrid_exact")
+# GCNConv(backend="fused"), two layers forward + backward: K2 once each, K8
+# forward and dx once each
+FUSED_LAUNCHES = {"segment_sum_scalar": 2, "spmm_fused": 4}
 
 
 class SmokeFailure(RuntimeError):
@@ -349,7 +393,8 @@ def phase_head_kernels(torch, g, results):
     head_flops = 2 * (2 * NHID * NHID)          # per edge, forward
     head_bytes = N_NODES * NHID * 2 + 2 * NHID * NHID * 2 + 8 * NHID + 4
 
-    # K3: the grad-enabled head's forward at q=200k
+    # K3 with a sorted side (row 4, call_banded): the grad-enabled head's
+    # forward at q=200k
     out = ss.score_head_sampled(h, fc1, b1, fc2, b2, s, r, drop_rate=DROP,
                                 seed=drop.seed, sorted_side="senders")
     ref = ss.score_head_plain(h, *split, s, r, drop)
@@ -375,8 +420,8 @@ def phase_head_kernels(torch, g, results):
               bound_ms=max((head_bytes + 12 * Q) / HBM_BPS,
                            head_flops * Q / BF16_FLOPS) * 1e3,
               bound_by="operations")
-    emit("kernel", name="score_head_sampled", **k3)
-    results["score_head_sampled"]["cases"].append(k3)
+    emit("kernel", name="score_head_sampled_banded", **k3)
+    results["score_head_sampled_banded"] = dict(k3, cases=[k3])
 
     # K5: its backward, with the mask regenerated from the seed; at q=200k
     # (a multiple of the kernels' edge blocks) and at q=200k-37 (a tail)
@@ -453,6 +498,114 @@ def phase_head_kernels(torch, g, results):
               bound_by="operations")
     emit("kernel", name="score_head_tiles", **k6)
     results["score_head_tiles"] = dict(k6, cases=[k6])
+
+
+def phase_sparse_kernels(torch, g, results):
+    """K7 at the unfused head's receiver-side VJP (the straight_through and
+    exact hybrid paths) and K8 at the fused SpMM's shapes, each against its
+    plain version."""
+    from sgs_gnn_tpu_torch.ops import scatter as sc
+    # the module (ops/__init__ binds the name spmm to the function)
+    sp = importlib.import_module("sgs_gnn_tpu_torch.ops.spmm")
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(13)
+    band = g.receiver_band
+
+    # K7: the head's (E, 256) bf16 cotangent over the receiver-sorted edges
+    vals = torch.randn(N_EDGES, NHID, generator=gen, device=dev).to(
+        torch.bfloat16)
+    ids = g.receivers
+    padded = ids.clone()           # the TPU wrapper pads with N + band
+    padded[-1000:] = N_NODES
+    padded[-500:] = N_NODES + band
+    cases = []
+    # (case, vals, ids, band, items the band rule keeps; None: fewer than E)
+    for case, v, i, b, want_kept in (
+            (f"E=1M F=256 bf16 receiver-sorted band={band}", vals, ids,
+             band, N_EDGES),
+            (f"E=1M-37 (ragged) band={band}", vals[:-37], ids[:-37], band,
+             N_EDGES - 37),
+            ("E=1M band=8 (undersized: items dropped)", vals, ids, 8, None),
+            (f"E=1M, last 1000 ids padding (N, N+band) band={band}", vals,
+             padded, band, N_EDGES - 1000)):
+        e = i.shape[0]
+        keep = sc.sorted_band_keep(i, N_NODES, b)
+        kept = int(keep.sum())
+        check(kept < e if want_kept is None else kept == want_kept,
+              f"scatter_add_sorted {case}: the band rule kept {kept} of {e}")
+        out = sc.scatter_add_sorted(v, i, N_NODES, b)
+        ref = sc.scatter_add_sorted_plain(v, i, N_NODES, b)
+        tol = sum_tolerance(sc.scatter_add_sorted_plain(v.abs(), i, N_NODES,
+                                                        b))
+        err = (out - ref).abs()
+        check(bool((err <= tol).all()), f"scatter_add_sorted {case}: error "
+              f"{float(err.max())} above tolerance")
+        v32, i64 = v[keep].float(), i[keep].long()
+        nbytes = e * NHID * 2 + 4 * e + 4 * N_NODES * NHID
+        cases.append(dict(
+            case=case, items_kept=kept, max_abs_err=float(err.max()),
+            tolerance="1e-5 * sum|vals| per row + 1e-6 (f32 sums reordered "
+                      "by atomics); the same items dropped",
+            ms=cuda_ms(torch, lambda: sc.scatter_add_sorted(v, i, N_NODES,
+                                                            b)),
+            plain_ms=cuda_ms(torch, lambda: sc.scatter_add_sorted_plain(
+                v, i, N_NODES, b), iters=5),
+            library_ms=cuda_ms(torch, lambda: torch.zeros(
+                N_NODES, NHID, device=dev).index_add_(0, i64, v32)),
+            library="index_add_ of the kept items (f32, int64 ids)",
+            bound_ms=max(nbytes / HBM_BPS, e * NHID / F32_FLOPS) * 1e3,
+            bound_by="bytes"))
+        emit("kernel", name="scatter_add_sorted", **cases[-1])
+    results["scatter_add_sorted"] = dict(cases[0], cases=cases)
+
+    # K8: the whole receiver-sorted edge list and its reversal (the
+    # backward's, receivers unsorted), F = nhid and classes
+    cases = []
+    for f in (NHID, CLASSES):
+        x = torch.randn(N_NODES, f, generator=gen, device=dev).to(
+            torch.bfloat16)
+        xf = x.float()
+        for weighted in (False, True):
+            w = (torch.rand(N_EDGES, generator=gen, device=dev) if weighted
+                 else torch.ones(N_EDGES, device=dev))
+            for order, s, r in (("receiver-sorted", g.senders, g.receivers),
+                                ("reversed", g.receivers, g.senders)):
+                kind = "weighted" if weighted else "unweighted"
+                case = f"E=1M F={f} bf16 {kind} {order}"
+                out = sp._spmm_fused(s, r, w, x, N_NODES)
+                ref = sp.spmm_fused_plain(s, r, w, x, N_NODES)
+                tol = sum_tolerance(sp.spmm_fused_plain(s, r, w, x.abs(),
+                                                        N_NODES))
+                err = (out - ref).abs()
+                check(bool((err <= tol).all()), f"spmm_fused {case}: error "
+                      f"{float(err.max())} above tolerance")
+                # the library's A_w as CSR (weights rounded to x's type, as
+                # K8 rounds them), built outside the timed region
+                a_w = torch.sparse_coo_tensor(
+                    torch.stack([r.long(), s.long()]),
+                    w.to(x.dtype).float(), (N_NODES, N_NODES)).coalesce() \
+                    .to_sparse_csr()
+                w_auto = w if weighted else None
+                nbytes = 12 * N_EDGES + N_NODES * f * (2 + 4)
+                cases.append(dict(
+                    case=case, max_abs_err=float(err.max()),
+                    tolerance="1e-5 * sum|w x| per row + 1e-6 (f32 sums "
+                              "reordered by atomics)",
+                    ms=cuda_ms(torch, lambda: sp._spmm_fused(s, r, w, x,
+                                                             N_NODES)),
+                    plain_ms=cuda_ms(torch, lambda: sp.spmm_fused_plain(
+                        s, r, w, x, N_NODES), iters=5),
+                    library_ms=cuda_ms(torch, lambda: torch.sparse.mm(a_w,
+                                                                      xf)),
+                    library="torch.sparse.mm of A_w as CSR (f32) by x (f32)",
+                    auto_route_ms=cuda_ms(torch, lambda: sp.spmm(
+                        s, r, w_auto, x, N_NODES)),
+                    bound_ms=max(nbytes / HBM_BPS,
+                                 2 * N_EDGES * f / F32_FLOPS) * 1e3,
+                    bound_by="operations"))
+                emit("kernel", name="spmm_fused", **cases[-1])
+    # the main case: the scorer layer's forward (F = nhid, unweighted)
+    results["spmm_fused"] = dict(cases[0], cases=cases)
 
 
 def phase_serve(torch, arrays):
@@ -573,16 +726,89 @@ def phase_serve(torch, arrays):
     return launches
 
 
-def _frozen_sampling(pipelines, idx_t, rand_idx):
-    """Replace the training step's samplers with fixed indices (the JAX
-    package's oracle tests freeze sampling the same way); returns a
+def phase_fused_spmm(torch, g):
+    """GCNConv(backend="fused") forward + backward at the scorer's first
+    layer (602 -> 256 over all E=1M edges, unweighted) and the backbone's
+    second (256 -> 41 over q=200k sampled edges, weighted), launch-counted,
+    then the same layers with backend="auto": outputs and gradients
+    compared. Returns the fused run's launches."""
+    from sgs_gnn_tpu_torch.models.layers import GCNConv
+    from sgs_gnn_tpu_torch.ops._build import LAUNCHES
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(14)
+    sub = torch.randperm(N_EDGES, generator=gen, device=dev)[:Q].sort().values
+    h = torch.randn(N_NODES, NHID, generator=gen, device=dev).relu()
+    w = torch.rand(Q, generator=gen, device=dev)
+    layers, inputs, cots = [], [], []
+    for k, (fin, fout, s, r, x, wt) in enumerate((
+            (FEAT, NHID, g.senders, g.receivers, g.x, None),
+            (NHID, CLASSES, g.senders[sub], g.receivers[sub], h, w))):
+        layers.append(GCNConv(fin, fout, torch.bfloat16,
+                              torch.Generator().manual_seed(20 + k),
+                              backend="fused").to(dev))
+        inputs.append((x if wt is None else x.clone().requires_grad_(), s, r,
+                       None if wt is None else wt.clone().requires_grad_()))
+        cots.append(torch.randn(N_NODES, fout, generator=gen, device=dev))
+
+    def run():
+        res = []
+        for layer, (x, s, r, wt), cot in zip(layers, inputs, cots):
+            out = layer(x, s, r, wt)
+            wrt = [t for t in (x, wt) if t is not None and t.requires_grad]
+            wrt += list(layer.parameters())
+            res.append([out.detach()] + list(torch.autograd.grad(
+                out, wrt, cot)))
+        return res
+
+    torch.cuda.synchronize()
+    LAUNCHES.clear()
+    with no_host_sync(torch):
+        fused = run()
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    check(launches == FUSED_LAUNCHES,
+          f"fused SpMM launch counts {launches}, expected {FUSED_LAUNCHES}")
+    fused_ms = cuda_ms(torch, run, iters=5, warmup=1)
+    for layer in layers:
+        layer.backend = "auto"
+    auto = run()
+    auto_ms = cuda_ms(torch, run, iters=5, warmup=1)
+    names = (["out", "dW", "db"], ["out", "dx", "dw", "dW", "db"])
+    rel = [{n: float((a.float() - b.float()).norm()
+                     / b.float().norm().clamp(min=1e-30))
+            for n, a, b in zip(ns, fa, aa)}
+           for ns, fa, aa in zip(names, fused, auto)]
+    emit("fused_spmm", cases=["scorer gcn1 602->256 E=1M unweighted",
+                              "backbone gcn2 256->41 q=200k weighted"],
+         launches=launches, rel_l2_fused_vs_auto=rel,
+         tolerance=f"relative L2 {FUSED_REL_TOL} per tensor (bf16: the auto "
+                   "route rounds each product w*x to bf16, K8 keeps f32)",
+         fused_fwd_bwd_ms=fused_ms, auto_fwd_bwd_ms=auto_ms)
+    bad = [(i, n, e) for i, r_ in enumerate(rel) for n, e in r_.items()
+           if not e <= FUSED_REL_TOL]
+    check(not bad, f"GCNConv fused vs auto: {bad}")
+    return launches
+
+
+def _frozen_sampling(torch, pipelines, idx, rand_idx):
+    """Replace the training step's samplers with fixed indices and the
+    weight formulas of ``sample_edges`` (straight-through weights keep
+    their gradient path), as the parity tests freeze them; returns a
     function that restores them."""
+    from sgs_gnn_tpu_torch.sparsify.sampling import _normalized
     saved = pipelines.sample_edges, pipelines.sample_prior_edges
 
     def sample_edges(generator, edge_probs, prior, q, beta, istest=False,
                      edge_mask=None):
-        idx = idx_t.to(edge_probs.device)
-        return idx, edge_probs[idx.long()]
+        i = idx.to(edge_probs.device)
+        samples = _normalized(edge_probs, edge_mask)
+        if not istest:
+            prior_ = (prior if edge_mask is None
+                      else torch.where(edge_mask, prior, 0.0))
+            samples = (1.0 - beta) * samples + beta * prior_
+        sel = samples[i.long()]
+        st = (1.0 - sel).detach() + sel
+        return i, torch.clamp(edge_probs[i.long()] * st, 0.0, 1.0)
 
     pipelines.sample_edges = sample_edges
     pipelines.sample_prior_edges = \
@@ -593,21 +819,24 @@ def _frozen_sampling(pipelines, idx_t, rand_idx):
     return restore
 
 
-def _grad_check(torch, arrays, build_kw, cfg_kw, g_card):
+def _grad_check(torch, arrays, g_card, name, cfg_kw):
     """One frozen-sample step without dropout: loss and per-parameter
     gradients on the card (bf16, kernels) against the port on the CPU
     (f32, plain versions), same weights."""
     from sgs_gnn_tpu_torch import Config, Graph, get_model
+    from sgs_gnn_tpu_torch.data import degree_prior
     from sgs_gnn_tpu_torch.train import pipelines
     x, edge_index, y, train = arrays
     cfg = Config(**dict(cfg_kw, drop_rate=0.0, conditional=False))
+    tiles = name == "hybrid_rescore"     # samples in tile space
     rng = np.random.default_rng(3)
-    valid = np.flatnonzero(g_card.tile_mask.cpu().numpy())
-    idx_t = torch.from_numpy(np.sort(rng.choice(valid, Q, replace=False))
-                             .astype(np.int32))
+    valid = np.flatnonzero((g_card.tile_mask if tiles else g_card.edge_mask)
+                           .cpu().numpy())
+    idx = torch.from_numpy(np.sort(rng.choice(valid, Q, replace=False))
+                           .astype(np.int32))
     rand_idx = torch.from_numpy(rng.choice(N_EDGES, Q, replace=False)
                                 .astype(np.int32))
-    restore = _frozen_sampling(pipelines, idx_t, rand_idx)
+    restore = _frozen_sampling(torch, pipelines, idx, rand_idx)
     try:
         out = {}
         t0 = time.perf_counter()
@@ -615,7 +844,10 @@ def _grad_check(torch, arrays, build_kw, cfg_kw, g_card):
                               ("cpu", None, "float32")):
             if g is None:
                 g = Graph.build(x, edge_index, y, train, ~train, None,
-                                device="cpu", **build_kw)
+                                prob=degree_prior(edge_index[0],
+                                                  edge_index[1], N_NODES),
+                                num_classes=CLASSES, sort_by_receiver=True,
+                                tile_index=tiles, device="cpu")
             model = get_model("GCN", FEAT, NHID, CLASSES, 0.0, "GCN",
                               dtype=dtype, device=dev,
                               generator=torch.Generator().manual_seed(5))
@@ -632,10 +864,11 @@ def _grad_check(torch, arrays, build_kw, cfg_kw, g_card):
     rel = {n: float((g_c[n] - g_f[n]).norm() / g_f[n].norm().clamp(min=1e-30))
            for n in g_f}
     loss_rel = abs(loss_c - loss_f) / abs(loss_f)
-    emit("grad_check", loss_card_bf16=loss_c, loss_cpu_f32=loss_f,
-         loss_rel_err=loss_rel, grad_rel_l2_err=rel, seconds=cpu_s,
-         note="sample frozen, dropout off, conditional off (every "
-              "parameter gets a gradient)")
+    emit("grad_check", pipeline=name, edges=N_EDGES, q=Q,
+         loss_card_bf16=loss_c, loss_cpu_f32=loss_f, loss_rel_err=loss_rel,
+         grad_rel_l2_err=rel, seconds=cpu_s,
+         note="sample frozen (straight-through weight formula), dropout "
+              "off, conditional off (every parameter gets a gradient)")
     # bf16 rounds inputs, weights, the head's features and casts and every
     # projection to 8 significant bits; over the encoder, the head's
     # backward (dz1, dh_u/dh_v, dW1a/dW1b cast to bf16) and two GCN layers
@@ -647,37 +880,30 @@ def _grad_check(torch, arrays, build_kw, cfg_kw, g_card):
                    f"{GRAD_REL_TOL} (relative L2): {bad}")
 
 
-def phase_train(torch, arrays):
-    from sgs_gnn_tpu_torch import (Config, DualOptimizer, Graph, get_model,
+def _train_path(torch, g, name, cfg_kw, steps, expect):
+    """One pipeline's training at full width: a warm-up step, one
+    launch-counted step under no_host_sync, ``steps`` timed steps, a
+    ``train`` line, a ``profile`` line; returns the counted step's
+    launches."""
+    from sgs_gnn_tpu_torch import (Config, DualOptimizer, get_model,
                                    make_train_step)
-    from sgs_gnn_tpu_torch.data import degree_prior
     from sgs_gnn_tpu_torch.ops._build import LAUNCHES
-    x, edge_index, y, train = arrays
-    prob = degree_prior(edge_index[0], edge_index[1], N_NODES)
-    build_kw = dict(prob=prob, num_classes=CLASSES, sort_by_receiver=True,
-                    tile_index=True)
-    # bench.py's configuration (drop_rate keeps its default, 0.3)
-    cfg_kw = dict(pipeline="hybrid", mode="learned", conditional=True,
-                  sparse_edge_mlp=True, reg1=True, reg2=True, nhid=NHID,
-                  dtype="bfloat16")
     cfg = Config(**cfg_kw)
     check(cfg.drop_rate == DROP, f"drop_rate {cfg.drop_rate}")
-    g = Graph.build(x, edge_index, y, train, ~train, None, device=DEVICE,
-                    **build_kw)
-    check(g.tile_t == 128 and g.tile_b == 512, "no tile index")
     model = get_model("GCN", FEAT, NHID, CLASSES, cfg.drop_rate, "GCN",
                       dtype=cfg.dtype, device=DEVICE,
                       generator=torch.Generator().manual_seed(0))
     before = [p.detach().clone() for p in model.parameters()]
     opt = DualOptimizer.create(model, cfg.GNN, cfg.lr, cfg.weight_decay)
-    step = make_train_step(cfg, model, opt, Q, max_epoch=TRAIN_STEPS + 2)
+    step = make_train_step(cfg, model, opt, Q, max_epoch=steps + 2)
     gen = torch.Generator(device=DEVICE).manual_seed(1)
 
     t0 = time.perf_counter()
     m = step(g, 0, gen)                       # warm-up
     torch.cuda.synchronize()
     first_ms = (time.perf_counter() - t0) * 1e3
-    check(bool(torch.isfinite(m.loss)), f"warm-up loss {float(m.loss)}")
+    check(bool(torch.isfinite(m.loss)), f"{name}: warm-up loss "
+                                        f"{float(m.loss)}")
 
     # the main path, one step, with every launch counter at 0 just before
     # it; any wait of the host for the card inside the step raises
@@ -687,48 +913,93 @@ def phase_train(torch, arrays):
         m = step(g, 1, gen)
     torch.cuda.synchronize()
     launches = dict(LAUNCHES)
-    check(launches == TRAIN_LAUNCHES,
-          f"train launch counts {launches}, expected {TRAIN_LAUNCHES}")
+    check(launches == expect,
+          f"{name}: launch counts {launches}, expected {expect}")
 
+    base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     metrics = []
     t0 = time.perf_counter()
-    for i in range(TRAIN_STEPS):
+    for i in range(steps):
         metrics.append(step(g, 2 + i, gen))
     torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) / TRAIN_STEPS * 1e3
+    step_ms = (time.perf_counter() - t0) / steps * 1e3
     peak = torch.cuda.max_memory_allocated()
     losses = torch.stack([mt.loss for mt in metrics]).cpu()
     gates = torch.stack([mt.conditional_update for mt in metrics]).cpu()
-    check(bool(torch.isfinite(losses).all()), f"losses {losses.tolist()}")
+    check(bool(torch.isfinite(losses).all()),
+          f"{name}: losses {losses.tolist()}")
     still = [n for (n, p), b in zip(model.named_parameters(), before)
              if torch.equal(p.detach(), b)]
-    check(not still, f"parameters that did not move: {still}")
-    emit("train", nodes=N_NODES, edges=N_EDGES, tile_slots=g.tile_ls.shape[0],
-         features=FEAT, nhid=NHID, classes=CLASSES, q=Q, dtype=cfg.dtype,
-         drop_rate=cfg.drop_rate, steps=TRAIN_STEPS, first_step_ms=first_ms,
-         step_ms=step_ms, hybrid_train_edges_per_s=N_EDGES / step_ms * 1e3,
-         max_memory_allocated=peak, losses=losses.tolist(),
-         gates=gates.tolist(), launches_per_step=launches)
-    emit("profile", call="train_step", **profile_breakdown(
-        torch, lambda: step(g, TRAIN_STEPS + 2, gen)))
-    _grad_check(torch, arrays, build_kw, cfg_kw, g)
+    check(not still, f"{name}: parameters that did not move: {still}")
+    extra = {}
+    if name == "hybrid_rescore":
+        extra = dict(tile_slots=g.tile_ls.shape[0],
+                     hybrid_train_edges_per_s=N_EDGES / step_ms * 1e3)
+    emit("train", pipeline=name, config=cfg_kw, nodes=N_NODES,
+         edges=N_EDGES, features=FEAT, nhid=NHID, classes=CLASSES, q=Q,
+         dtype=cfg.dtype, drop_rate=cfg.drop_rate, steps=steps,
+         first_step_ms=first_ms, step_ms=step_ms,
+         train_edges_per_s=N_EDGES / step_ms * 1e3,
+         max_memory_allocated=peak, memory_allocated_before=base,
+         losses=losses.tolist(), gates=gates.tolist(),
+         launches_per_step=launches, **extra)
+    emit("profile", call=f"train_step {name}", **profile_breakdown(
+        torch, lambda: step(g, steps + 2, gen)))
     return launches
 
 
+def phase_train(torch, arrays):
+    """Every learned pipeline on the bench partition with its tile index
+    (only hybrid_rescore reads it); returns {pipeline: launches}."""
+    from sgs_gnn_tpu_torch import Graph
+    from sgs_gnn_tpu_torch.data import degree_prior
+    x, edge_index, y, train = arrays
+    g = Graph.build(x, edge_index, y, train, ~train, None, device=DEVICE,
+                    prob=degree_prior(edge_index[0], edge_index[1], N_NODES),
+                    num_classes=CLASSES, sort_by_receiver=True,
+                    tile_index=True)
+    check(g.tile_t == 128 and g.tile_b == 512, "no tile index")
+    check(g.receiver_band > 0, "the edge list is not receiver-sorted")
+    launches, cfgs = {}, {}
+    for name, (overrides, steps, expect) in PIPELINES.items():
+        # bench.py's configuration (drop_rate keeps its default, 0.3)
+        cfgs[name] = dict(mode="learned", conditional=True,
+                          sparse_edge_mlp=True, reg1=True, reg2=True,
+                          nhid=NHID, dtype="bfloat16", **overrides)
+        launches[name] = _train_path(torch, g, name, cfgs[name], steps,
+                                     expect)
+        torch.cuda.empty_cache()
+    # after every timed path: the grad checks' f32 runs on the CPU slowed
+    # the host's launches of a path timed right after them
+    for name in GRAD_CHECKED:
+        _grad_check(torch, arrays, g, name, cfgs[name])
+        torch.cuda.empty_cache()
+    return launches
+
+
+# one entry per TPU kernel of the JAX package (each function that reaches
+# pl.pallas_call): the port's kernel name, its source and what it replaces
 KERNELS = {
     "scatter_add": ("sgs_gnn_tpu_torch/csrc/scatter.cu",
                     "sgs_gnn_tpu/ops/scatter_pallas.py:197"),
     "segment_sum_scalar": ("sgs_gnn_tpu_torch/csrc/segment_sum.cu",
                            "sgs_gnn_tpu/ops/scatter_pallas.py:265"),
-    # rows 3 and 4 (call_full and call_banded run _make_fwd_kernel)
+    # row 3, call_full of _make_fwd_kernel
     "score_head_sampled": ("sgs_gnn_tpu_torch/csrc/score_sampled.cu",
                            "sgs_gnn_tpu/ops/score_sampled.py:127"),
+    # row 4, call_banded: the same kernel with a sorted side
+    "score_head_sampled_banded": ("sgs_gnn_tpu_torch/csrc/score_sampled.cu",
+                                  "sgs_gnn_tpu/ops/score_sampled.py:368"),
     # row 5, full and banded
     "score_head_bwd": ("sgs_gnn_tpu_torch/csrc/score_sampled.cu",
                        "sgs_gnn_tpu/ops/score_sampled.py:184"),
     "score_head_tiles": ("sgs_gnn_tpu_torch/csrc/score_tiles.cu",
                          "sgs_gnn_tpu/ops/score_tiles.py:115"),
+    "scatter_add_sorted": ("sgs_gnn_tpu_torch/csrc/scatter_sorted.cu",
+                           "sgs_gnn_tpu/ops/scatter_pallas.py:109"),
+    "spmm_fused": ("sgs_gnn_tpu_torch/csrc/spmm.cu",
+                   "sgs_gnn_tpu/ops/spmm_pallas.py:42"),
 }
 
 
@@ -750,24 +1021,25 @@ def main():
                     sort_by_receiver=True, tile_index=True)
     kernels = phase_kernels(torch, g)
     phase_head_kernels(torch, g, kernels)
+    phase_sparse_kernels(torch, g, kernels)
+    paths = {"fused_spmm": phase_fused_spmm(torch, g)}
     del g
-    serve_launches = phase_serve(torch, arrays)
-    train_launches = phase_train(torch, arrays)
+    torch.cuda.empty_cache()
+    paths["serve"] = phase_serve(torch, arrays)
+    paths.update(phase_train(torch, arrays))
 
     line = []
     for name, (source, replaces) in KERNELS.items():
-        # the case at the training path's shapes where a kernel has several
-        k = kernels[name]["cases"][-1] if name == "score_head_sampled" \
-            else kernels[name]
+        k = kernels[name]          # its case at the main path's shapes
+        by_path = {p: n.get(name, 0) for p, n in paths.items()}
+        check(any(by_path.values()), f"{name}: launched on no path")
         line.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=train_launches.get(name, 0),
-            launches_by_path={"serve": serve_launches.get(name, 0),
-                              "train_step": train_launches.get(name, 0)},
+            launches=sum(by_path.values()), launches_by_path=by_path,
             max_abs_err=k["max_abs_err"], ms=k["ms"],
             plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
             bound_by=k["bound_by"], library_ms=k["library_ms"],
-            matched=True, case=k["case"], cases=kernels[name]["cases"]))
+            matched=True, case=k["case"]))
     print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

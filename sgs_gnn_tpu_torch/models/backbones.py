@@ -40,10 +40,15 @@ class GNNModel(nn.Module):
 
     def score_edges(self, x, prop_senders, prop_receivers, score_senders,
                     score_receivers, deterministic: bool = True,
-                    generator=None):
+                    use_remat: bool = False, score_receiver_band: int = 0,
+                    score_sorted_side: str = "", generator=None):
+        """The scorer (encoder on the prop edges, head on the score edges);
+        see ``EdgeProbGCN.score_from`` for the band and remat options."""
         return self.edge_prob_mlp(x, prop_senders, prop_receivers,
                                   score_senders, score_receivers,
-                                  deterministic, generator)
+                                  deterministic, use_remat,
+                                  score_receiver_band, score_sorted_side,
+                                  generator)
 
     def encode_scorer(self, x, prop_senders, prop_receivers,
                       deterministic: bool = True, generator=None):
@@ -53,10 +58,13 @@ class GNNModel(nn.Module):
 
     def score_from_embeddings(self, h, senders, receivers,
                               deterministic: bool = True,
+                              use_remat: bool = False,
+                              receiver_band: int = 0,
                               sorted_side: str = "", generator=None):
         """Score head only, over precomputed scorer embeddings."""
         return self.edge_prob_mlp.score_from(h, senders, receivers,
-                                             deterministic, sorted_side,
+                                             deterministic, use_remat,
+                                             receiver_band, sorted_side,
                                              generator)
 
     def score_tiles_from_embeddings(self, h, tile_ls, tile_lr, tile_su,

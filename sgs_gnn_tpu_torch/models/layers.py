@@ -30,12 +30,16 @@ class GCNConv(nn.Module):
 
     The normalisation is node-separable: degrees are weighted in-degrees
     plus one (the self-loop), the two degree factors scale nodes around an
-    (un)weighted SpMM, and the self-loop term is added analytically."""
+    (un)weighted SpMM, and the self-loop term is added analytically.
+    ``backend`` is passed to ``ops.spmm``: "auto" (gather + K1) or "fused"
+    (K8; the JAX layer's ``backend="pallas"``)."""
 
     def __init__(self, in_features: int, features: int,
-                 dtype: torch.dtype = torch.float32, generator=None):
+                 dtype: torch.dtype = torch.float32, generator=None,
+                 backend: str = "auto"):
         super().__init__()
         self.dtype = dtype
+        self.backend = backend
         self.lin = nn.Linear(in_features, features, bias=False)
         glorot_uniform_(self.lin.weight, generator)
         self.bias = nn.Parameter(torch.zeros(features))
@@ -50,7 +54,8 @@ class GCNConv(nn.Module):
         xw = nn.functional.linear(x.to(self.dtype),
                                   self.lin.weight.to(self.dtype))
         xs = xw * dis[:, None].to(xw.dtype)
-        agg = spmm(senders, receivers, edge_weight, xs, n)
+        agg = spmm(senders, receivers, edge_weight, xs, n,
+                   backend=self.backend)
         out = (agg.float() * dis[:, None]
                + (dis * dis)[:, None] * xw.float())
         return out + self.bias

@@ -9,17 +9,28 @@ edge (u, v) -> sigmoid(fc2(relu(fc1([h_u * h_v || h_u - h_v])))):
     score_tiles(h, tile index)              -> probs     (Ep,) tile order
     forward(...) == score_from(encode(...), score edges)
 
-``score_from`` always goes through ``ops.score_head_sampled`` (K3 forward,
-K5 backward on the card) and ``score_tiles`` through
-``ops.score_head_tiles`` (K6, detached); on the CPU both run their plain
-versions. fc1 is stored as one ``nn.Linear(2F, K)`` (the JAX tree's concat
-kernel, transposed) and split into its product half W1a and difference half
-W1b at the call, so no (E, 2F) concat is formed.
+``score_from`` takes one of two routes, as the JAX ``score_from``
+(scorers.py:135-171) does:
+
+  * ``receiver_band == 0``: ``ops.score_head_sampled`` (K3 forward, K5
+    backward on the card; the JAX fused head);
+  * ``receiver_band > 0`` (the receivers are the receiver-sorted edge list
+    of ``Graph.receiver_band``): the unfused head, ``gather_rows`` of both
+    endpoints (the receiver side's VJP is K7, the sender side's K1) into
+    plain torch products: fc1 in its halves, ReLU, layer dropout, fc2,
+    sigmoid in f32. ``use_remat`` wraps it in ``torch.utils.checkpoint``,
+    the JAX ``jax.checkpoint`` (``--hybrid_checkpoint``).
+
+``score_tiles`` goes through ``ops.score_head_tiles`` (K6, detached). On
+the CPU the ops run their plain versions. fc1 is stored as one
+``nn.Linear(2F, K)`` (the JAX tree's concat kernel, transposed) and split
+into its product half W1a and difference half W1b at the call, so no (E, 2F)
+concat is formed.
 
 Training-mode randomness comes from an explicit ``torch.Generator``: the
-encoder's dropout draws from it, and the head's dropout seed is one int32
-drawn from it on the tensors' device (the kernels read it there, so no step
-waits for the card).
+encoder's and the unfused head's dropout draw from it, and the fused
+head's dropout seed is one int32 drawn from it on the tensors' device (the
+kernels read it there, so no step waits for the card).
 """
 from __future__ import annotations
 
@@ -27,9 +38,11 @@ import math
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .layers import GCNConv
 from ..ops.dropout import dropout
+from ..ops.edge_gather import gather_rows
 from ..ops.score_sampled import score_head_sampled
 from ..ops.score_tiles import score_head_tiles
 
@@ -66,6 +79,21 @@ class _ScoreHead(nn.Module):
                                   senders, receivers, drop_rate=rate,
                                   seed=seed, sorted_side=sorted_side)
 
+    def unfused(self, hu, hv, deterministic: bool = True, generator=None):
+        """The JAX ``_ScoreHead.__call__`` on gathered endpoint rows, in
+        their dtype: fc1 as W1a (product half) and W1b (difference half),
+        ReLU, layer dropout from ``generator``, fc2, sigmoid in f32."""
+        f = hu.shape[1]
+        w1 = self.fc1.weight.to(hu.dtype)
+        z = (nn.functional.linear(hu * hv, w1[:, :f])
+             + nn.functional.linear(hu - hv, w1[:, f:],
+                                    self.fc1.bias.to(hu.dtype)))
+        z = dropout(torch.relu(z), self.dropout_prob, generator,
+                    training=not deterministic)
+        logit = nn.functional.linear(z, self.fc2.weight.to(z.dtype),
+                                     self.fc2.bias.to(z.dtype))
+        return torch.sigmoid(logit.float()).squeeze(-1)
+
     def tiles(self, h, tile_ls, tile_lr, tile_su, tile_rv, t: int, bk: int,
               deterministic: bool = True, seed=0):
         rate = 0.0 if deterministic else self.dropout_prob
@@ -81,6 +109,28 @@ def draw_seed(generator, device):
     JAX scorer)."""
     return torch.randint(0, 2 ** 31 - 1, (1,), generator=generator,
                          device=device, dtype=torch.int32)
+
+
+def _checkpointed(fn, h, generator):
+    """``fn(h, generator)`` under ``torch.utils.checkpoint``. The checkpoint
+    restores only the default generators before its recompute, so the
+    recompute in the backward draws from a fresh generator set to
+    ``generator``'s state at the forward: the same dropout mask, and
+    ``generator`` itself is not rewound."""
+    if generator is None:
+        return checkpoint(fn, h, None, use_reentrant=False)
+    state = generator.get_state()
+    calls = []
+
+    def run(h_):
+        gen = generator
+        if calls:                      # the recompute
+            gen = torch.Generator(device=generator.device)
+            gen.set_state(state)
+        calls.append(None)
+        return fn(h_, gen)
+
+    return checkpoint(run, h, use_reentrant=False, preserve_rng_state=False)
 
 
 class EdgeProbGCN(nn.Module):
@@ -107,9 +157,25 @@ class EdgeProbGCN(nn.Module):
         return h.to(self.dtype)
 
     def score_from(self, h, senders, receivers, deterministic: bool = True,
+                   use_remat: bool = False, receiver_band: int = 0,
                    sorted_side: str = "", generator=None):
-        return self.head(h.to(self.dtype), senders, receivers, deterministic,
-                         sorted_side, generator)
+        """(E,) f32 probabilities of the (senders, receivers) edges; the
+        route is chosen by ``receiver_band`` (module docstring).
+        ``use_remat`` applies to the unfused route only: the fused head's
+        backward recomputes its forward anyway, as in JAX."""
+        h = h.to(self.dtype)
+        if receiver_band == 0:
+            return self.head(h, senders, receivers, deterministic,
+                             sorted_side, generator)
+
+        def score(h_, gen):
+            return self.head.unfused(gather_rows(h_, senders),
+                                     gather_rows(h_, receivers, receiver_band),
+                                     deterministic, gen)
+
+        if use_remat:
+            return _checkpointed(score, h, generator)
+        return score(h, generator)
 
     def score_tiles(self, h, tile_ls, tile_lr, tile_su, tile_rv, t: int,
                     bk: int, deterministic: bool = True, seed=0):
@@ -119,8 +185,10 @@ class EdgeProbGCN(nn.Module):
 
     def forward(self, x, prop_senders, prop_receivers, score_senders,
                 score_receivers, deterministic: bool = True,
-                generator=None):
+                use_remat: bool = False, score_receiver_band: int = 0,
+                score_sorted_side: str = "", generator=None):
         h = self.encode(x, prop_senders, prop_receivers, deterministic,
                         generator)
         return self.score_from(h, score_senders, score_receivers,
-                               deterministic, generator=generator)
+                               deterministic, use_remat, score_receiver_band,
+                               score_sorted_side, generator)

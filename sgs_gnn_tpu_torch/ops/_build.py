@@ -32,7 +32,7 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("scatter.cu", "segment_sum.cu", "score_sampled.cu",
-           "score_tiles.cu")
+           "score_tiles.cu", "scatter_sorted.cu", "spmm.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -55,6 +55,8 @@ _SIGNATURES = {
     "sgs_score_head_tiles": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                              _I, _P, _U, _F, _P, _L, _I, _I, _I, _P],
     "sgs_dropout_bits": [_P, _P, _P, _L, _P],
+    "sgs_scatter_add_sorted": [_P, _I, _P, _P, _L, _I, _I, _I, _I, _I, _P],
+    "sgs_spmm_fused": [_P, _P, _P, _P, _I, _P, _L, _I, _I, _P],
 }
 
 
@@ -140,7 +142,7 @@ def call(kernel: str, fn_name: str, device: torch.device, *args) -> None:
 def check_cuda(name: str, *tensors: torch.Tensor) -> None:
     """The kernels take contiguous tensors on one card. They are called
     from inside ``autograd.Function``s (ops/scatter.py, edge_gather.py,
-    score_sampled.py) or under ``no_grad`` (score_tiles.py), so autograd
+    spmm.py, score_sampled.py) or under ``no_grad`` (score_tiles.py), so autograd
     never records a kernel launch itself."""
     dev = tensors[0].device
     if dev.type != "cuda":

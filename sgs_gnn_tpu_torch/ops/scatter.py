@@ -22,9 +22,23 @@ at E=1M). The kernel (``csrc/segment_sum.cu``) builds a per-block
 histogram in shared memory and flushes it with one global atomic per
 touched node; for N too large for shared memory it uses global atomics.
 
+``scatter_add_sorted(vals, ids_sorted, n, band)``: ``scatter_add`` over
+non-decreasing ids with the TPU kernel's band rule. Replaces
+``scatter_pallas.py:_make_sorted_kernel`` (behind
+``scatter_add_sorted_pallas``), which built its one-hot panel over a
+``band``-row slice of the output per 1024-item window only. The port keeps
+that kernel's function, including what it drops (``sorted_band_keep``): with
+``band >= required_band(ids, block)`` it is the exact segment sum. The
+kernel (``csrc/scatter_sorted.cu``) is a segmented reduction: each warp
+sums the runs of equal ids in its item range in registers and stores a run
+that lies wholly inside its range straight into the zeroed output; only
+runs that cross a range boundary take f32 atomics. Bound by bytes, like
+``scatter_add``.
+
 Ids outside [0, N) are dropped, as ``jax.ops.segment_sum`` drops them.
 
-Both are differentiable in their values through ``autograd.Function``s:
+``scatter_add`` and ``segment_sum_scalar`` are differentiable in their
+values through ``autograd.Function``s:
 the VJP of a segment sum is a gather of the cotangent at the ids
 (``scatter_pallas.py:332-333``), zero for dropped ids. The gather is a plain
 row index on either device: it is no TPU kernel's counterpart.
@@ -134,6 +148,74 @@ def _scatter_add(vals, ids, num_segments: int):
     _build.call("scatter_add", "sgs_scatter_add", vals.device,
                 vals.data_ptr(), int(vals.dtype == torch.bfloat16),
                 ids.data_ptr(), out.data_ptr(), e, f, num_segments)
+    return out
+
+
+def _band_geometry(num_segments: int, band: int, block: int):
+    """(band rounded up to a multiple of 8, n_pad) as the TPU wrapper
+    computes them (scatter_pallas.py:165-166)."""
+    if band <= 0 or block <= 0:
+        raise ValueError(f"band={band} and block={block} must be > 0")
+    band = min(_round_up(band, 8), 1 << 30)
+    return band, _round_up(max(num_segments, 8), 8) + band
+
+
+def sorted_band_keep(ids_sorted, num_segments: int, band: int,
+                     block: int = 1024):
+    """(E,) bool: the items that ``scatter_add_sorted_pallas`` adds. The
+    band is rounded up to a multiple of 8; window w (items [w*block,
+    (w+1)*block)) writes rows [start_w, start_w + band) with ``start_w =
+    min(ids[w*block] // 8 * 8, n_pad - band)`` and ``n_pad = round_up(max(N,
+    8), 8) + band`` (scatter_pallas.py:165-177); rows >= N are cut off.
+    Negative ids are dropped too (the TPU's band slice would start outside
+    its output)."""
+    band, n_pad = _band_geometry(num_segments, band, block)
+    ids = ids_sorted.long()
+    starts = torch.clamp(torch.div(ids[::block], 8, rounding_mode="floor") * 8,
+                         max=n_pad - band)
+    window = torch.arange(ids.shape[0], device=ids.device) // block
+    lid = ids - starts[window]
+    return _in_range(ids, num_segments) & (lid >= 0) & (lid < band)
+
+
+def scatter_add_sorted_plain(vals, ids_sorted, num_segments: int, band: int,
+                             block: int = 1024):
+    """Plain version: the band rule of ``sorted_band_keep``, then
+    ``index_add_`` in f32."""
+    keep = sorted_band_keep(ids_sorted, num_segments, band, block)
+    out = torch.zeros((num_segments, vals.shape[1]), dtype=torch.float32,
+                      device=vals.device)
+    return out.index_add_(0, ids_sorted[keep].long(), vals[keep].float())
+
+
+def scatter_add_sorted(vals, ids_sorted, num_segments: int, band: int,
+                       block: int = 1024):
+    """(E, F) bf16/f32 rows summed by non-decreasing ``ids_sorted`` into
+    (num_segments, F) float32, dropping what the TPU kernel drops for this
+    ``band`` and ``block`` (``sorted_band_keep``). Not differentiable: it is
+    the VJP of ``gather_rows(..., sorted_band)``."""
+    if vals.dim() != 2 or ids_sorted.shape != (vals.shape[0],):
+        raise ValueError(f"scatter_add_sorted: vals {tuple(vals.shape)} and "
+                         f"ids {tuple(ids_sorted.shape)} do not match")
+    if vals.device.type == "cpu":
+        return scatter_add_sorted_plain(vals, ids_sorted, num_segments, band,
+                                        block)
+    band8, n_pad = _band_geometry(num_segments, band, block)
+    _build.check_cuda("scatter_add_sorted", vals, ids_sorted)
+    if vals.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"scatter_add_sorted: vals dtype {vals.dtype}")
+    if ids_sorted.dtype != torch.int32:
+        raise TypeError(f"scatter_add_sorted: ids dtype {ids_sorted.dtype}, "
+                        "want int32")
+    e, f = vals.shape
+    out = torch.zeros((num_segments, f), dtype=torch.float32,
+                      device=vals.device)
+    if e == 0 or f == 0 or num_segments == 0:
+        return out
+    _build.call("scatter_add_sorted", "sgs_scatter_add_sorted", vals.device,
+                vals.data_ptr(), int(vals.dtype == torch.bfloat16),
+                ids_sorted.data_ptr(), out.data_ptr(), e, f, num_segments,
+                band8, n_pad, block)
     return out
 
 

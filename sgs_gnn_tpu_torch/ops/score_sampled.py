@@ -31,7 +31,9 @@ caller sorted. 'receivers' swaps the endpoints and negates W1b, as the JAX
 op does ((hv-hu) @ -W1b == (hu-hv) @ W1b; the product half is symmetric),
 so the first side is always the sorted one; K5 merges runs of equal ids on
 the first side in its dh scatter. The probabilities and gradients do not
-depend on it.
+depend on it. A forward with a sorted side is the counterpart of
+``call_banded`` (TPU kernel table row 4) and counts its launches as
+``score_head_sampled_banded``; without one, as ``score_head_sampled``.
 """
 from __future__ import annotations
 
@@ -148,7 +150,7 @@ def _check_kernel_inputs(name, h, w1a, w1b, b1, w2, b2, drop, *ids):
         raise TypeError(f"{name}: ids must be int32")
 
 
-def _head_fwd(h, w1a, w1b, b1, w2, b2, sid, rid, drop):
+def _head_fwd(h, w1a, w1b, b1, w2, b2, sid, rid, drop, banded=False):
     if h.device.type == "cpu":
         return score_head_plain(h, w1a, w1b, b1, w2, b2, sid, rid, drop)
     _check_kernel_inputs("score_head_sampled", h, w1a, w1b, b1, w2, b2,
@@ -158,7 +160,8 @@ def _head_fwd(h, w1a, w1b, b1, w2, b2, sid, rid, drop):
     out = torch.empty(q, dtype=torch.float32, device=h.device)
     if q == 0:
         return out
-    _build.call("score_head_sampled", "sgs_score_head_fwd", h.device,
+    kernel = "score_head_sampled_banded" if banded else "score_head_sampled"
+    _build.call(kernel, "sgs_score_head_fwd", h.device,
                 h.data_ptr(), int(h.dtype == torch.bfloat16), w1a.data_ptr(),
                 w1b.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
                 sid.data_ptr(), rid.data_ptr(), drop.seed.data_ptr(),
@@ -203,10 +206,10 @@ def _head_bwd(h, w1a, w1b, b1, w2, b2, sid, rid, dp, drop):
 
 class _ScoreHead(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, h, w1a, w1b, b1, w2, b2, sid, rid, drop):
+    def forward(ctx, h, w1a, w1b, b1, w2, b2, sid, rid, drop, banded):
         ctx.save_for_backward(h, w1a, w1b, b1, w2, b2, sid, rid)
         ctx.drop = drop
-        return _head_fwd(h, w1a, w1b, b1, w2, b2, sid, rid, drop)
+        return _head_fwd(h, w1a, w1b, b1, w2, b2, sid, rid, drop, banded)
 
     @staticmethod
     def backward(ctx, dp):
@@ -214,7 +217,7 @@ class _ScoreHead(torch.autograd.Function):
         dh, dw1a, dw1b, db1, dw2, db2 = _head_bwd(
             h, w1a, w1b, b1, w2, b2, sid, rid, dp, ctx.drop)
         return (dh.to(h.dtype), dw1a.to(w1a.dtype), dw1b.to(w1b.dtype), db1,
-                dw2, db2, None, None, None)
+                dw2, db2, None, None, None, None)
 
 
 def score_head_sampled(h, fc1_kernel, fc1_bias, fc2_kernel, fc2_bias,
@@ -235,4 +238,4 @@ def score_head_sampled(h, fc1_kernel, fc1_bias, fc2_kernel, fc2_bias,
         w1b = -w1b
     return _ScoreHead.apply(h.contiguous(), w1a, w1b, b1, w2, b2,
                             senders.contiguous(), receivers.contiguous(),
-                            drop)
+                            drop, bool(sorted_side))

@@ -1,35 +1,46 @@
-"""Training step of the learned ``hybrid`` pipeline with ``hybrid_rescore``
-(port of ``train/pipelines.py``: ``make_learned_loss``'s hybrid_rescore
-branch, its no-tile-index variant and the shared tail, and
-``make_train_step`` in learned mode).
+"""Training step of the learned mode (port of ``train/pipelines.py``:
+``make_learned_loss`` with its four pipeline branches and the shared tail,
+and ``make_train_step`` in learned mode).
 
-One step, on one cluster partition:
+One step, on one cluster partition. First, with ``conditional`` or
+``sparse_edge_mlp``, a degree-prior random q-subgraph
+(``sample_prior_edges``): the scorer's propagation graph and the
+conditional gate's comparison forward. Then the pipeline's branch turns
+the scorer into the q sampled edges' weights:
 
-  1. a degree-prior random q-subgraph (``sample_prior_edges``): the
-     scorer's propagation graph (``sparse_edge_mlp``) and the conditional
-     gate's comparison forward;
-  2. the scorer's encoder on it -> h (N, nhid), with gradients;
-  3. a detached pass that scores every edge from h: with a tile index, K6
-     over every tile slot in tile order, sampled in tile space; without
-     one, K3 over the edge list;
-  4. the q winners, sorted (sender-major in tile space, receiver-sorted
-     edge ids otherwise, unless ``sorted_head='off'``), with endpoints,
-     validity and reg1 flags from one packed aux-row gather;
-  5. the grad-enabled head on the q sampled edges (K3 forward, K5
-     backward);
-  6. the tail: the backbone on the sampled edges weighted by the head's
-     probabilities, masked CE, reg1 (packed flags), reg2, and the
-     conditional gate (a second backbone forward on the random subgraph,
-     micro-F1 of both, ``torch.where`` on the detached comparison);
-  7. the dual-Adam update (``train/optim.py``), the edge group gated.
+  * ``two_pass`` (the ``Config`` default; pipelines.py:118-146): the
+    scorer over every edge without gradients (K3); sample; sort the winners
+    (receiver-sorted edge ids); re-score them with gradients, the encoder
+    propagating on the sampled subgraph (K3 forward, K5 backward).
+  * ``straight_through`` (:147-156): the scorer over every edge with
+    gradients, through the unfused head (``score_receiver_band``: the
+    receiver side's VJP is K7); the sampler's straight-through weights
+    carry the gradient to every edge through the normalisation.
+  * ``hybrid`` exact (``hybrid_rescore=False``, :226-239): the same scoring
+    pass, under ``torch.utils.checkpoint`` with ``hybrid_checkpoint``;
+    sample on the detached probabilities; the weights are the gathered
+    probabilities of the same pass.
+  * ``hybrid`` with ``hybrid_rescore`` (:157-225): the encoder with
+    gradients; a detached pass over every edge from h (with a tile index
+    K6 over every tile slot in tile order, sampled in tile space; without
+    one K3); the winners sorted (sender-major in tile space,
+    receiver-sorted edge ids otherwise, unless ``sorted_head='off'``); the
+    grad-enabled head on them (K3 forward, K5 backward).
+
+Endpoints, validity and reg1 flags of the winners come from one packed
+aux-row gather. The shared tail: the backbone on the sampled edges
+weighted by the probabilities, masked CE, reg1 (packed flags), reg2, and
+the conditional gate (a second backbone forward on the random subgraph,
+micro-F1 of both, ``torch.where`` on the detached comparison); then the
+dual-Adam update (``train/optim.py``), the edge group gated.
 
 In PyTorch idiom the module holds the parameters, the optimizer updates
 them in place, and the step takes ``(graph, epoch, generator)``: every
 random draw of the step comes from that ``torch.Generator``, on the
 graph's device. Nothing in the step reads a value back to the host. The
 JAX package's TPU gates on this path (``dense_subgraph``, the h width
-limit of the tile kernel, fused-head VMEM budgets) are not copied. Other
-pipelines and modes raise ``NotImplementedError`` (ROADMAP.md, slice 5).
+limit of the tile kernel, fused-head VMEM budgets) are not copied. The
+baseline modes raise ``NotImplementedError`` (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -57,9 +68,8 @@ class StepMetrics(NamedTuple):
 
 def _not_ported(what: str):
     return NotImplementedError(
-        f"{what}: the port carries the learned hybrid pipeline with "
-        "hybrid_rescore so far; the other pipelines and modes come with a "
-        "later slice (ROADMAP.md)")
+        f"{what}: the port carries the learned mode so far; the baseline "
+        "modes come with a later slice (ROADMAP.md)")
 
 
 def _apply_gnn(model, x, s, r, w, generator):
@@ -74,12 +84,59 @@ def _aux_columns(aux):
             flags)
 
 
+def _sample_sorted(cfg: Config, g: Graph, generator, probs, q: int):
+    """Sample q edge ids from detached ``probs``; with ``sorted_head`` on a
+    receiver-sorted edge list, sort them (ascending edge ids sort the
+    sampled receivers exactly) and name the receivers as the head's sorted
+    side. Returns (idx, sorted_side)."""
+    idx, _ = sample_edges(generator, probs, g.prob, q, cfg.degree_bias_coef,
+                          edge_mask=g.edge_mask)
+    if cfg.sorted_head != "off" and g.receiver_band > 0:
+        return torch.sort(idx).values, "receivers"
+    return idx, ""
+
+
+def _rescore(cfg: Config, model, q: int, g: Graph, generator, prop_s,
+             prop_r):
+    """The hybrid_rescore branch: grads reach the scorer only through the q
+    sampled edges' probabilities, so the pass over every edge runs detached
+    and the grad-enabled head runs on the q winners only. Returns the
+    winners' (weights, senders, receivers, valid, reg1 flags)."""
+    h = model.encode_scorer(g.x, prop_s, prop_r, deterministic=False,
+                            generator=generator)
+    if g.tile_t:
+        seed = draw_seed(generator, g.x.device)
+        probs_tiles = model.score_tiles_from_embeddings(
+            h.detach(), g.tile_ls, g.tile_lr, g.tile_su, g.tile_rv,
+            g.tile_t, g.tile_b, deterministic=False, seed=seed)
+        idx_t, _ = sample_edges(generator, probs_tiles, g.tile_prob, q,
+                                cfg.degree_bias_coef, edge_mask=g.tile_mask)
+        sorted_side = ""
+        if cfg.sorted_head != "off":
+            # ascending tile slots put the senders in near-sorted order
+            # (the layout is sender-tile-major)
+            idx_t = torch.sort(idx_t).values
+            sorted_side = "senders"
+        # validity from tile space: padding slots map to edge id 0
+        sel = _aux_columns(g.tile_aux[idx_t])
+    else:
+        with torch.no_grad():
+            probs_sample = model.score_from_embeddings(
+                h.detach(), g.senders, g.receivers, deterministic=False,
+                generator=generator)
+        idx, sorted_side = _sample_sorted(cfg, g, generator, probs_sample, q)
+        sel = _aux_columns(g.edge_aux[idx])
+    weights = model.score_from_embeddings(
+        h, sel[0], sel[1], deterministic=False, sorted_side=sorted_side,
+        generator=generator)
+    return (weights,) + sel
+
+
 def make_learned_loss(cfg: Config, model, q: int):
-    """``loss_fn(g, generator) -> (total, (gate, lf1, rf1))`` of one batch;
-    all three aux values are device tensors."""
-    if cfg.pipeline != "hybrid" or not cfg.hybrid_rescore:
-        raise _not_ported(f"pipeline={cfg.pipeline!r} hybrid_rescore="
-                          f"{cfg.hybrid_rescore}")
+    """``loss_fn(g, generator) -> (total, (gate, lf1, rf1))`` of one batch
+    for ``cfg.pipeline`` (module docstring; ``Config`` admits only the three
+    pipelines); all three aux values are device tensors."""
+    pipeline = cfg.pipeline
 
     def loss_fn(g: Graph, generator: torch.Generator):
         dev = g.x.device
@@ -92,45 +149,46 @@ def make_learned_loss(cfg: Config, model, q: int):
             rand_s = rand_r = None
             prop_s, prop_r = g.senders, g.receivers
 
-        # grads reach the scorer only through the q sampled edges'
-        # probabilities, so the pass over every edge runs detached and the
-        # grad-enabled head runs on the q winners only
-        h = model.encode_scorer(g.x, prop_s, prop_r, deterministic=False,
-                                generator=generator)
-        if g.tile_t:
-            seed = draw_seed(generator, dev)
-            probs_tiles = model.score_tiles_from_embeddings(
-                h.detach(), g.tile_ls, g.tile_lr, g.tile_su, g.tile_rv,
-                g.tile_t, g.tile_b, deterministic=False, seed=seed)
-            idx_t, _ = sample_edges(generator, probs_tiles, g.tile_prob, q,
-                                    cfg.degree_bias_coef,
-                                    edge_mask=g.tile_mask)
-            sorted_side = ""
-            if cfg.sorted_head != "off":
-                # ascending tile slots put the senders in near-sorted order
-                # (the layout is sender-tile-major)
-                idx_t = torch.sort(idx_t).values
-                sorted_side = "senders"
-            # validity from tile space: padding slots map to edge id 0
-            s_s, s_r, sel_valid, reg1_flags = _aux_columns(g.tile_aux[idx_t])
-        else:
+        if pipeline == "two_pass":
+            # pass 1 over every edge without gradients; pass 3 re-scores
+            # the winners with gradients, the scorer's encoder propagating
+            # on the sampled subgraph (reference training_two_pass.py:75-77)
             with torch.no_grad():
-                probs_sample = model.score_from_embeddings(
-                    h.detach(), g.senders, g.receivers, deterministic=False,
-                    generator=generator)
-            idx, _ = sample_edges(generator, probs_sample, g.prob, q,
-                                  cfg.degree_bias_coef,
-                                  edge_mask=g.edge_mask)
-            sorted_side = ""
-            if cfg.sorted_head != "off" and g.receiver_band > 0:
-                # receiver-sorted edge list: ascending edge ids sort the
-                # sampled receivers exactly
-                idx = torch.sort(idx).values
-                sorted_side = "receivers"
+                probs_full = model.score_edges(
+                    g.x, prop_s, prop_r, g.senders, g.receivers,
+                    deterministic=False, generator=generator)
+            idx, sorted_side = _sample_sorted(cfg, g, generator, probs_full,
+                                              q)
             s_s, s_r, sel_valid, reg1_flags = _aux_columns(g.edge_aux[idx])
-        weights = model.score_from_embeddings(
-            h, s_s, s_r, deterministic=False, sorted_side=sorted_side,
-            generator=generator)
+            weights = model.score_edges(
+                g.x, s_s, s_r, s_s, s_r, deterministic=False,
+                score_sorted_side=sorted_side, generator=generator)
+        elif pipeline == "straight_through":
+            # one grad-enabled pass over every edge; the straight-through
+            # weights carry the gradient through the sampling distribution
+            probs_full = model.score_edges(
+                g.x, prop_s, prop_r, g.senders, g.receivers,
+                deterministic=False, score_receiver_band=g.receiver_band,
+                generator=generator)
+            idx, weights = sample_edges(generator, probs_full, g.prob, q,
+                                        cfg.degree_bias_coef,
+                                        edge_mask=g.edge_mask)
+            s_s, s_r, sel_valid, reg1_flags = _aux_columns(g.edge_aux[idx])
+        elif cfg.hybrid_rescore:
+            weights, s_s, s_r, sel_valid, reg1_flags = _rescore(
+                cfg, model, q, g, generator, prop_s, prop_r)
+        else:
+            # exact hybrid: sample on the detached probabilities, then the
+            # weights are the same pass's sampled entries
+            # (reference training_hybrid.py:86)
+            probs_full = model.score_edges(
+                g.x, prop_s, prop_r, g.senders, g.receivers,
+                deterministic=False, use_remat=cfg.hybrid_checkpoint,
+                score_receiver_band=g.receiver_band, generator=generator)
+            idx, _ = sample_edges(generator, probs_full.detach(), g.prob, q,
+                                  cfg.degree_bias_coef, edge_mask=g.edge_mask)
+            s_s, s_r, sel_valid, reg1_flags = _aux_columns(g.edge_aux[idx])
+            weights = probs_full[idx]
 
         # padding selections (fewer valid edges than q) get zero weight
         weights = torch.where(sel_valid, weights, 0.0)

@@ -4,7 +4,10 @@ Marked ``cuda``; each test skips without a card. These cover the ragged
 and odd shapes that the full-width run in ``chip_smoke.py`` does not: F not
 a multiple of the column tile, K not a multiple of the hidden tile, q not a
 multiple of the edge tile, ids out of range, N above the shared-memory
-histogram, N not a multiple of the tile rows, padding slots. The head
+histogram, N not a multiple of the tile rows, padding slots; for the
+sorted scatter a ragged E, padding ids and a band too narrow (kernel and
+plain version drop the same items); for the fused SpMM sorted and unsorted
+receivers and its backward. The head
 kernels run with dropout: kernel and plain version draw the same mask from
 the same seed, so only the order of f32 sums (and, in bf16, the roundings
 that follow them) separates them. On the machine with the card (no JAX
@@ -12,6 +15,8 @@ there, so without the repository's conftest):
 
     python -m pytest -o addopts="" --noconftest -m cuda tests/test_torch_cuda.py -q
 """
+import importlib
+
 import pytest
 import torch
 
@@ -21,6 +26,9 @@ from sgs_gnn_tpu_torch.ops import scatter as sc
 from sgs_gnn_tpu_torch.ops import score_sampled as ss
 from sgs_gnn_tpu_torch.ops import score_tiles as st
 from sgs_gnn_tpu_torch.ops._build import LAUNCHES
+
+# the module (ops/__init__ binds the name spmm to the function)
+sp = importlib.import_module("sgs_gnn_tpu_torch.ops.spmm")
 
 # (seed, counter, hash32) computed from csrc/common.cuh's definition; the
 # same table is held against the torch twin in tests/test_torch_tiles.py
@@ -84,6 +92,80 @@ def test_segment_sum_scalar_kernel(card, n):
     ones = torch.ones_like(w)                  # counts are exact in f32
     assert torch.equal(sc.segment_sum_scalar(ones, ids, n),
                        sc.segment_sum_scalar_plain(ones, ids, n))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,e,f,block,band", [
+    (2048, 100_003, 256, 1024, 0),      # ragged E, band = required_band
+    (2048, 100_003, 256, 1024, 8),      # undersized band: items dropped
+    (37, 5001, 41, 256, 0),             # F off the 16-byte layout
+    (5, 333, 300, 64, 0),               # two column tiles
+    (300, 20_000, 8, 1024, 16)])
+def test_scatter_add_sorted_kernel(card, dtype, n, e, f, block, band):
+    g = torch.Generator(device=card).manual_seed(7)
+    vals = torch.randn(e, f, generator=g, device=card).to(dtype)
+    ids = torch.randint(0, n, (e,), generator=g, device=card,
+                        dtype=torch.int32).sort().values
+    if band == 0:
+        band = sc.required_band(ids.cpu().numpy(), block)
+    # padding ids at the end, as the TPU wrapper pads: N and N + band
+    ids[-5:] = n
+    ids[-2:] = n + band
+    keep = sc.sorted_band_keep(ids, n, band, block)
+    assert not bool(keep[-5:].any())
+    # the second case is a view 16-byte misaligned: the element layout
+    shifted = vals.reshape(-1)[1:1 + (e - 1) * f].reshape(e - 1, f)
+    for v, i in ((vals, ids), (shifted, ids[:-1])):
+        before = LAUNCHES["scatter_add_sorted"]
+        out = sc.scatter_add_sorted(v, i, n, band, block)
+        torch.cuda.synchronize()
+        assert LAUNCHES["scatter_add_sorted"] == before + 1
+        ref = sc.scatter_add_sorted_plain(v, i, n, band, block)
+        tol = _sum_tol(sc.scatter_add_sorted_plain(v.abs(), i, n, band,
+                                                   block))
+        assert out.dtype == torch.float32 and out.shape == (n, f)
+        assert bool(((out - ref).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("f", [41, 256])
+@pytest.mark.parametrize("order", ["sorted", "reversed"])
+def test_spmm_fused_kernel(card, dtype, f, order):
+    n, e = 2048, 50_001
+    g = torch.Generator(device=card).manual_seed(8)
+    s = torch.randint(-1, n + 1, (e,), generator=g, device=card,
+                      dtype=torch.int32)
+    r = torch.randint(0, n, (e,), generator=g, device=card,
+                      dtype=torch.int32).sort().values
+    if order == "reversed":                     # the backward's edge list
+        s, r = r, s
+    w = torch.rand(e, generator=g, device=card, requires_grad=True)
+    x = torch.randn(n, f, generator=g, device=card).to(dtype) \
+        .requires_grad_()
+    before = LAUNCHES["spmm_fused"]
+    out = sp.spmm(s, r, w, x, n, backend="fused")
+    torch.cuda.synchronize()
+    assert LAUNCHES["spmm_fused"] == before + 1
+    assert out.dtype == dtype
+    ref = sp.spmm_fused_plain(s, r, w.detach(), x.detach(), n)
+    tol = _sum_tol(sp.spmm_fused_plain(s, r, w.detach(), x.detach().abs(),
+                                       n))
+    got = sp._spmm_fused(s, r, w.detach(), x.detach(), n)
+    assert bool(((got - ref).abs() <= tol).all())
+    # the result is cast to x's type: one rounding of the f32 sums
+    assert bool(((out.float() - ref).abs()
+                 <= tol + 2 ** -8 * ref.abs()).all())
+    cot = torch.randn(n, f, generator=g, device=card).to(dtype)
+    before = LAUNCHES["spmm_fused"]
+    dw, dx = torch.autograd.grad(out, (w, x), cot)
+    assert LAUNCHES["spmm_fused"] == before + 1     # dx: K8, reversed edges
+    dx_ref = sp.spmm_fused_plain(r, s, w.detach(), cot, n)
+    dx_tol = _sum_tol(sp.spmm_fused_plain(r, s, w.detach(), cot.abs(), n))
+    assert bool(((dx.float() - dx_ref).abs()
+                 <= dx_tol + 2 ** -8 * dx_ref.abs()).all())
+    dw_ref = torch.sum(sc.rows_at(x.detach(), s, n)
+                       * sc.rows_at(cot, r, n), dim=-1).float()
+    assert torch.equal(dw, dw_ref)
 
 
 def _head(card, g, n, f, k, dtype):
@@ -238,6 +320,26 @@ def test_segment_sum_autograd_on_card(card):
     assert dx.shape == x.shape
 
 
+def test_gather_rows_sorted_band_on_card(card):
+    g = torch.Generator(device=card).manual_seed(9)
+    n, e, f = 300, 40_000, 64
+    x = torch.randn(n, f, generator=g, device=card).to(torch.bfloat16) \
+        .requires_grad_()
+    ids = _ids(card, g, n, e).sort().values
+    band = sc.required_band(ids.cpu().numpy())
+    cot = torch.randn(e, f, generator=g, device=card).to(torch.bfloat16)
+    before = dict(LAUNCHES)
+    dx, = torch.autograd.grad(eg.gather_rows(x, ids, band), x, cot)
+    assert LAUNCHES["scatter_add_sorted"] == \
+        before.get("scatter_add_sorted", 0) + 1
+    assert LAUNCHES["scatter_add"] == before.get("scatter_add", 0)
+    ref = sc.scatter_add_plain(cot, ids, n)
+    tol = _sum_tol(sc.scatter_add_plain(cot.abs(), ids, n))
+    # one rounding to bf16 of the f32 sums
+    assert bool(((dx.float() - ref).abs() <= tol + 2 ** -8 * ref.abs())
+                .all())
+
+
 def test_kernels_raise_on_bad_input(card):
     v = torch.zeros(4, 3, device=card)
     with pytest.raises(TypeError):
@@ -257,3 +359,10 @@ def test_kernels_raise_on_bad_input(card):
         ss.score_head_sampled(h, *head, ids, ids, sorted_side="both")
     with pytest.raises(ValueError):
         ss.score_head_sampled(h, *head, ids.cpu(), ids.cpu())  # two devices
+    with pytest.raises(TypeError):
+        sc.scatter_add_sorted(v, torch.zeros(4, dtype=torch.int64,
+                                             device=card), 2, 8)
+    with pytest.raises(TypeError):
+        sp.spmm(ids, ids, None, h.half(), 4, backend="fused")
+    with pytest.raises(ValueError):
+        sp.spmm(ids, ids, None, h, 5, backend="fused")   # N != x rows

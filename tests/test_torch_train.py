@@ -372,8 +372,10 @@ def test_small_batch_step_matches_jax(monkeypatch):
                                    rtol=1e-5, atol=1e-6, err_msg=name)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_train_step(Config(mode="random"), tm, topt, Q, 5)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_learned_loss(Config(pipeline="two_pass"), tm, Q)
+    # every pipeline of the learned mode is ported
+    # (tests/test_torch_pipelines.py holds them to the JAX package)
+    for pipeline in ("two_pass", "straight_through", "hybrid"):
+        assert callable(make_learned_loss(Config(pipeline=pipeline), tm, Q))
 
 
 # ------------------------------------------------------------------- eval
