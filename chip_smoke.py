@@ -7,9 +7,15 @@ Phases, each printing one JSON line:
 
   1. device   the card (name and power limit from nvidia-smi), the build of
               the CUDA kernels from the sources in this checkout.
+     sass     the tensor-core head kernels (bf16 K3 and K6,
+              csrc/head_mma.cuh) as built: registers, spills and stack from
+              the build log's ptxas lines, dynamic shared memory, and their
+              HGMMA / HMMA instructions counted in ``cuobjdump -sass`` of
+              the library (a count of 0 fails the run).
   2. kernel   each kernel of the serving and training paths against its
               plain PyTorch version on the card at the path's shapes, the
-              head kernels (K3, K5, K6) with dropout 0.3 (kernel and plain
+              head kernels (K3 at E=1M without and with dropout 0.3, K3 with
+              a sorted side, K5, K6 with dropout 0.3; kernel and plain
               version draw the same mask), the sorted scatter K7 (with a
               ragged E, a band too narrow and padding ids) and the fused
               SpMM K8 (F=256 and 41, weighted and not, the receiver-sorted
@@ -43,7 +49,8 @@ Phases, each printing one JSON line:
               line).
 
 Then a ``kernels`` line (one entry per TPU kernel of the JAX package: route,
-source, the TPU kernel it replaces, launches on each path, error and times)
+the units it runs on, source, the TPU kernel it replaces, launches on each
+path, error, times and the share of its bound)
 and, last, the ok line. Any failed check raises and the script exits
 nonzero without the ok line; without a card it exits 1 before doing
 anything.
@@ -51,9 +58,11 @@ anything.
 import contextlib
 import importlib
 import json
+import re
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -72,6 +81,7 @@ TRAIN_STEPS = 20           # timed steps of hybrid_rescore
 PIPELINE_STEPS = 10        # timed steps of each other pipeline
 GRAD_REL_TOL = 0.05        # grad_check: relative L2, card bf16 vs CPU f32
 FUSED_REL_TOL = 1e-2       # GCNConv fused vs auto: relative L2, bf16
+HEAD_MMA_KERNEL = "head_mma_kernel"   # bf16 K3 / K6 (csrc/head_mma.cuh)
 # The learned pipelines, each with bench.py's flags, and the launches of one
 # step (conditional, sparse_edge_mlp, reg1, reg2). In every pipeline K1
 # runs once in each GCN layer's SpMM and once in each backward of one that
@@ -222,11 +232,93 @@ def phase_device(torch):
          build_s=build_s, library=lib.name)
 
 
+def _ptxas_info(log_text, marker):
+    """Registers, spills and stack of each kernel whose mangled name holds
+    ``marker``, and ptxas' remarks on it (a serialized wgmma pipeline,
+    say), from the build log's ``-Xptxas -v`` lines."""
+    info, cur = {}, None
+    lines = log_text.splitlines()
+    for i, line in enumerate(lines):
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = m.group(1) if marker in m.group(1) else None
+            if cur:
+                info.setdefault(cur, {"remarks": []})
+            continue
+        if cur is None:
+            continue
+        if re.search(r"\(C\d{4}\)|[Ww]arning", line):
+            info[cur]["remarks"].append(line.strip()[:300])
+        m = re.search(r"Function properties for (\S+)", line)
+        if m and i + 1 < len(lines):
+            nums = re.findall(r"(\d+) bytes (stack frame|spill stores|"
+                              r"spill loads)", lines[i + 1])
+            info[cur].update({k.replace(" ", "_"): int(v) for v, k in nums})
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            info[cur]["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            if sm:
+                info[cur]["static_smem"] = int(sm.group(1))
+    return info
+
+
+def _sass_counts(lib, marker):
+    """{kernel: number of HGMMA / HMMA instructions} in the SASS of the
+    built library (cuobjdump -sass), for kernels whose name holds
+    ``marker``; None without cuobjdump."""
+    import os
+    import shutil
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    tool = shutil.which("cuobjdump") or os.path.join(home, "bin",
+                                                     "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300)
+    check(sass.returncode == 0, f"cuobjdump failed: {sass.stderr[-2000:]}")
+    counts, cur = {}, None
+    for line in sass.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = m.group(1) if marker in m.group(1) else None
+            if cur:
+                counts[cur] = {"HGMMA": 0, "HMMA": 0}
+        elif cur is not None:
+            for op in ("HGMMA", "HMMA"):
+                if re.search(rf"\b{op}\.", line):
+                    counts[cur][op] += 1
+    return counts
+
+
+def phase_sass(torch):
+    """The tensor-core head kernels as built: registers, spills and stack
+    from ptxas, their dynamic shared memory, and the count of tensor-core
+    instructions in their SASS; fails if a bf16 head kernel has none."""
+    from sgs_gnn_tpu_torch.ops import _build, head_mma
+    lib = _build.build()
+    log = Path(f"{lib}.log")
+    ptxas = _ptxas_info(log.read_text() if log.exists() else "",
+                        HEAD_MMA_KERNEL)
+    counts = _sass_counts(lib, HEAD_MMA_KERNEL)
+    emit("sass", kernels=HEAD_MMA_KERNEL, ptxas=ptxas,
+         dynamic_smem_bytes=head_mma.SMEM_BYTES, mma_instructions=counts,
+         cuobjdump=counts is not None)
+    check(bool(ptxas) or not log.exists(),
+          f"no ptxas lines for {HEAD_MMA_KERNEL} in {log.name}")
+    if counts is not None:
+        check(len(counts) >= 2, f"{HEAD_MMA_KERNEL}: {len(counts)} "
+              "instantiations in the SASS (K3 and K6 expected)")
+        bad = [k for k, c in counts.items() if c["HGMMA"] + c["HMMA"] == 0]
+        check(not bad, f"no tensor-core instructions in {bad}")
+
+
 def phase_kernels(torch, g):
     """Each kernel against its plain version at the serving path's shapes;
     returns {kernel: {main-case numbers, cases}}."""
     from sgs_gnn_tpu_torch.ops import scatter as sc
     from sgs_gnn_tpu_torch.ops import score_sampled as ss
+    from sgs_gnn_tpu_torch.ops.dropout import HeadDropout
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(11)
     receivers, senders = g.receivers, g.senders
@@ -300,26 +392,37 @@ def phase_kernels(torch, g):
     fc2 = torch.randn(NHID, 1, generator=gen, device=dev) / NHID ** 0.5
     b2 = torch.randn(1, generator=gen, device=dev) * 0.1
     split = ss.split_head(h, fc1, b1, fc2, b2)
-    out = ss.score_head_sampled(h, fc1, b1, fc2, b2, senders, receivers)
-    ref = ss.score_head_plain(h, *split, senders, receivers)
-    err = float((out - ref).abs().max())
-    check(err <= 1e-4, f"score_head_sampled: error {err} above 1e-4")
     q = N_EDGES
     flops = 2 * (2 * NHID * NHID) * q
     nbytes = N_NODES * NHID * 2 + 2 * NHID * NHID * 2 + 8 * NHID + 4 \
         + 8 * q + 4 * q
-    k3 = dict(case="E=1M F=K=256 bf16", max_abs_err=err,
-              tolerance="1e-4 abs on probabilities (same bf16-rounded "
-                        "features, f32 sums in another order)",
-              ms=cuda_ms(torch, lambda: ss.score_head_sampled(
-                  h, fc1, b1, fc2, b2, senders, receivers), iters=10),
-              plain_ms=cuda_ms(torch, lambda: ss.score_head_plain(
-                  h, *split, senders, receivers), iters=10),
-              library_ms=None,
-              bound_ms=max(nbytes / HBM_BPS, flops / BF16_FLOPS) * 1e3,
-              bound_by="operations")
-    emit("kernel", name="score_head_sampled", **k3)
-    results["score_head_sampled"] = dict(k3, cases=[k3])
+    # serve's scoring pass (no dropout) and two_pass's first pass (the
+    # head's dropout 0.3: kernel and plain version draw the same mask)
+    cases = []
+    for case, rate in (("E=1M F=K=256 bf16", 0.0),
+                       (f"E=1M F=K=256 bf16 dropout {DROP}", DROP)):
+        drop = HeadDropout.make(rate, 4243, dev)
+        kw = dict(drop_rate=rate, seed=drop.seed)
+        out = ss.score_head_sampled(h, fc1, b1, fc2, b2, senders, receivers,
+                                    **kw)
+        ref = ss.score_head_plain(h, *split, senders, receivers, drop)
+        err = float((out - ref).abs().max())
+        check(err <= 1e-4, f"score_head_sampled {case}: error {err} above "
+                           "1e-4")
+        cases.append(dict(
+            case=case, max_abs_err=err,
+            tolerance="1e-4 abs on probabilities (same bf16-rounded "
+                      "features and mask, f32 sums in another order)",
+            ms=cuda_ms(torch, lambda: ss.score_head_sampled(
+                h, fc1, b1, fc2, b2, senders, receivers, **kw), iters=10),
+            plain_ms=cuda_ms(torch, lambda: ss.score_head_plain(
+                h, *split, senders, receivers, drop), iters=10),
+            library_ms=None,
+            library="none: no single PyTorch call computes the head",
+            bound_ms=max(nbytes / HBM_BPS, flops / BF16_FLOPS) * 1e3,
+            bound_by="operations"))
+        emit("kernel", name="score_head_sampled", **cases[-1])
+    results["score_head_sampled"] = dict(cases[0], cases=cases)
     return results
 
 
@@ -986,21 +1089,24 @@ KERNELS = {
     "segment_sum_scalar": ("sgs_gnn_tpu_torch/csrc/segment_sum.cu",
                            "sgs_gnn_tpu/ops/scatter_pallas.py:265"),
     # row 3, call_full of _make_fwd_kernel
-    "score_head_sampled": ("sgs_gnn_tpu_torch/csrc/score_sampled.cu",
+    "score_head_sampled": ("sgs_gnn_tpu_torch/csrc/head_mma.cuh",
                            "sgs_gnn_tpu/ops/score_sampled.py:127"),
     # row 4, call_banded: the same kernel with a sorted side
-    "score_head_sampled_banded": ("sgs_gnn_tpu_torch/csrc/score_sampled.cu",
+    "score_head_sampled_banded": ("sgs_gnn_tpu_torch/csrc/head_mma.cuh",
                                   "sgs_gnn_tpu/ops/score_sampled.py:368"),
     # row 5, full and banded
     "score_head_bwd": ("sgs_gnn_tpu_torch/csrc/score_sampled.cu",
                        "sgs_gnn_tpu/ops/score_sampled.py:184"),
-    "score_head_tiles": ("sgs_gnn_tpu_torch/csrc/score_tiles.cu",
+    "score_head_tiles": ("sgs_gnn_tpu_torch/csrc/head_mma.cuh",
                          "sgs_gnn_tpu/ops/score_tiles.py:115"),
     "scatter_add_sorted": ("sgs_gnn_tpu_torch/csrc/scatter_sorted.cu",
                            "sgs_gnn_tpu/ops/scatter_pallas.py:109"),
     "spmm_fused": ("sgs_gnn_tpu_torch/csrc/spmm.cu",
                    "sgs_gnn_tpu/ops/spmm_pallas.py:42"),
 }
+# the bf16 forward head (csrc/head_mma.cuh): rows 3, 4 and 6
+TENSOR_CORE = ("score_head_sampled", "score_head_sampled_banded",
+               "score_head_tiles")
 
 
 def main():
@@ -1014,6 +1120,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase_device(torch)
+    phase_sass(torch)
 
     arrays = build_partition()
     x, edge_index, y, train = arrays
@@ -1034,12 +1141,15 @@ def main():
         by_path = {p: n.get(name, 0) for p, n in paths.items()}
         check(any(by_path.values()), f"{name}: launched on no path")
         line.append(dict(
-            name=name, route="cuda", source=source, replaces=replaces,
+            name=name, route="cuda",
+            units=("tensor cores (wgmma, bf16)" if name in TENSOR_CORE
+                   else "CUDA cores"),
+            source=source, replaces=replaces,
             launches=sum(by_path.values()), launches_by_path=by_path,
             max_abs_err=k["max_abs_err"], ms=k["ms"],
             plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
-            bound_by=k["bound_by"], library_ms=k["library_ms"],
-            matched=True, case=k["case"]))
+            bound_by=k["bound_by"], bound_share=k["bound_ms"] / k["ms"],
+            library_ms=k["library_ms"], matched=True, case=k["case"]))
     print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -62,4 +62,12 @@ inline int ceil_div_ll(long long a, long long b) {
   return static_cast<int>((a + b - 1) / b);
 }
 
+// streaming multiprocessors of the current device
+inline int sm_count() {
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return sms > 0 ? sms : 1;
+}
+
 }  // namespace sgs

@@ -1,6 +1,7 @@
-// Device code shared by the edge-score head kernels: K3 (score_sampled.cu,
-// forward over dynamic (sender, receiver) pairs), K5 (score_sampled.cu, its
-// backward) and K6 (score_tiles.cu, forward over every tile-pair slot).
+// CUDA-core device code of the edge-score head kernels: K5 (score_sampled.cu,
+// the backward), and the f32 forward of K3 (score_sampled.cu, dynamic
+// (sender, receiver) pairs) and K6 (score_tiles.cu, every tile-pair slot).
+// Their bf16 forward runs on the tensor cores (head_mma.cuh).
 //
 //   z  = (h[s]*h[r]) @ W1a + (h[s]-h[r]) @ W1b + b1          (edge, K)
 //   zd = drop(relu(z))                                     dropout mask

@@ -12,7 +12,9 @@
 // rows written out as residuals: the TPU kept them only to skip a second
 // one-hot select in the backward; K5 gathers them again from L2.
 // Bound: operations, 2*(2F*K) per edge (~53 us at q=200k, F=K=256, on the
-// bf16 tensor cores). This version runs f32 FMAs on CUDA cores (score_head.cuh).
+// bf16 tensor cores). bf16 h runs on the tensor cores (head_mma.cuh, which
+// says how); f32 h on CUDA cores (score_head.cuh), since the tensor cores
+// have no full-f32 product.
 //
 // K5, sgs_score_head_bwd: the VJP. Replaces
 // sgs_gnn_tpu/ops/score_sampled.py:_make_bwd_kernel (behind _bwd_call, full
@@ -35,6 +37,7 @@
 // Cast points follow the JAX kernel (score_sampled.py:248, 260-261): dz1
 // and dhu/dhv are rounded to h's type; db1 sums dz1 before the cast.
 // Bound: operations, 3x the forward's (~0.16 ms at q=200k on tensor cores).
+#include "head_mma.cuh"
 #include "score_head.cuh"
 
 namespace {
@@ -342,19 +345,13 @@ __global__ void dropout_bits_kernel(const int* __restrict__ seed,
                          static_cast<unsigned long long>(counters[i]));
 }
 
-int sm_count() {
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  return sms > 0 ? sms : 1;
-}
-
-template <typename T>
-int launch_fwd(const void* h, const void* w1a, const void* w1b,
-               const void* b1, const void* w2, const void* b2,
-               const void* sid, const void* rid, const void* seed,
-               unsigned thresh, float scale, void* out, long long q,
-               int n_rows, int feat, int hidden, cudaStream_t s) {
+// the f32 forward (CUDA cores; bf16 takes head_mma.cuh)
+int launch_fwd_f32(const void* h, const void* w1a, const void* w1b,
+                   const void* b1, const void* w2, const void* b2,
+                   const void* sid, const void* rid, const void* seed,
+                   unsigned thresh, float scale, void* out, long long q,
+                   int n_rows, int feat, int hidden, cudaStream_t s) {
+  using T = float;
   head_fwd_kernel<T, false><<<sgs::ceil_div_ll(q, BM), kThreads, 0, s>>>(
       static_cast<const T*>(h), static_cast<const T*>(w1a),
       static_cast<const T*>(w1b), static_cast<const float*>(b1),
@@ -373,7 +370,7 @@ int launch_bwd(const void* h, const void* w1a, const void* w1b,
                void* dh, void* dw1a, void* dw1b, void* db1, void* dw2,
                void* db2, long long q, int n_rows, int feat, int hidden,
                cudaStream_t s) {
-  const int sms = sm_count();
+  const int sms = sgs::sm_count();
   const long long tiles = (q + BM - 1) / BM;
   const int grid1 = static_cast<int>(tiles < 2LL * sms ? tiles : 2LL * sms);
   const size_t smem = 2 * static_cast<size_t>(hidden) * sizeof(float);
@@ -411,8 +408,12 @@ int launch_bwd(const void* h, const void* w1a, const void* w1b,
 
 }  // namespace
 
-extern "C" int sgs_score_head_fwd(const void* h, int h_bf16, const void* w1a,
-                                  const void* w1b, const void* b1,
+// K3. bf16 h goes to the tensor cores (head_mma.cuh: h rows `pitch`
+// elements apart, W1 as the packed image `wpack`); f32 h to the CUDA-core
+// kernel (w1a / w1b).
+extern "C" int sgs_score_head_fwd(const void* h, int h_bf16, int pitch,
+                                  const void* w1a, const void* w1b,
+                                  const void* wpack, const void* b1,
                                   const void* w2, const void* b2,
                                   const void* sid, const void* rid,
                                   const void* seed, unsigned thresh,
@@ -421,11 +422,11 @@ extern "C" int sgs_score_head_fwd(const void* h, int h_bf16, const void* w1a,
                                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (h_bf16)
-    return launch_fwd<__nv_bfloat16>(h, w1a, w1b, b1, w2, b2, sid, rid, seed,
-                                     thresh, scale, out, q, n_rows, feat,
-                                     hidden, s);
-  return launch_fwd<float>(h, w1a, w1b, b1, w2, b2, sid, rid, seed, thresh,
-                           scale, out, q, n_rows, feat, hidden, s);
+    return sgs::mma::launch<false>(h, pitch, wpack, b1, w2, b2, sid, rid,
+                                   nullptr, nullptr, 0, 1, seed, thresh,
+                                   scale, out, q, n_rows, feat, hidden, s);
+  return launch_fwd_f32(h, w1a, w1b, b1, w2, b2, sid, rid, seed, thresh,
+                        scale, out, q, n_rows, feat, hidden, s);
 }
 
 extern "C" int sgs_score_head_bwd(const void* h, int h_bf16, const void* w1a,

@@ -47,13 +47,14 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "sgs_scatter_add": [_P, _I, _P, _P, _L, _I, _I, _P],
     "sgs_segment_sum_scalar": [_P, _P, _P, _L, _I, _P],
-    "sgs_score_head_fwd": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _U, _F,
-                           _P, _L, _I, _I, _I, _P],
+    "sgs_score_head_fwd": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                           _U, _F, _P, _L, _I, _I, _I, _P],
     "sgs_score_head_bwd": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _U,
                            _F, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I,
                            _P],
-    "sgs_score_head_tiles": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                             _I, _P, _U, _F, _P, _L, _I, _I, _I, _P],
+    "sgs_score_head_tiles": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                             _P, _I, _I, _P, _U, _F, _P, _L, _I, _I, _I,
+                             _P],
     "sgs_dropout_bits": [_P, _P, _P, _L, _P],
     "sgs_scatter_add_sorted": [_P, _I, _P, _P, _L, _I, _I, _I, _I, _I, _P],
     "sgs_spmm_fused": [_P, _P, _P, _P, _I, _P, _L, _I, _I, _P],

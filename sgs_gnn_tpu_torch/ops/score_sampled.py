@@ -21,10 +21,16 @@ On a CUDA tensor the forward launches K3 and the backward K5
 ``_fwd_call.call_full`` and ``call_banded`` (a Hopper gather reads rows
 directly, so the band's cut of one-hot FLOPs has no counterpart), K5
 replaces ``_make_bwd_kernel`` behind ``_bwd_call``. Both are bound by
-operations; this first version runs on CUDA cores, far above that bound
-(see the sources). On the CPU the plain versions run: ``score_head_plain``
-and ``score_head_bwd_plain``, which follow the kernels' cast points and
-mask bit for bit, edge chunk by edge chunk to bound memory.
+operations. K3 dispatches on h's dtype (``kernel_operands``), in this
+wrapper and in its C entry point: bf16 runs on the tensor cores
+(``csrc/head_mma.cuh``, W1 packed by ``ops/head_mma.py``), f32 on CUDA
+cores (``csrc/score_head.cuh``), since the tensor cores have no full-f32
+product and TF32 would miss the f32 tolerance. Both count their launches
+under the same name, and a kernel that fails raises. K5 runs on CUDA cores
+(far above its bound, see the sources). On the CPU the plain versions
+run: ``score_head_plain`` and ``score_head_bwd_plain``, which follow the
+kernels' cast points and mask bit for bit, edge chunk by edge chunk to
+bound memory.
 
 ``sorted_side`` ('senders' | 'receivers' | '') names the endpoint array the
 caller sorted. 'receivers' swaps the endpoints and negates W1b, as the JAX
@@ -39,7 +45,7 @@ from __future__ import annotations
 
 import torch
 
-from . import _build
+from . import _build, head_mma
 from .dropout import HeadDropout, keep_mask
 from .scatter import rows_at, scatter_add_plain
 
@@ -150,6 +156,17 @@ def _check_kernel_inputs(name, h, w1a, w1b, b1, w2, b2, drop, *ids):
         raise TypeError(f"{name}: ids must be int32")
 
 
+def kernel_operands(h, w1a, w1b):
+    """The forward kernels' operands by h's dtype: (h, h_bf16, pitch,
+    wpack). bf16 takes the tensor cores: h with 16-byte rows and W1 packed
+    as their shared-memory image (``ops/head_mma.py``); f32 takes the CUDA
+    cores, which read h, W1a and W1b as they are (wpack None)."""
+    if h.dtype == torch.bfloat16:
+        h16, pitch = head_mma.head_rows(h)
+        return h16, 1, pitch, head_mma.pack_head_weights(w1a, w1b)
+    return h, 0, h.shape[1], None
+
+
 def _head_fwd(h, w1a, w1b, b1, w2, b2, sid, rid, drop, banded=False):
     if h.device.type == "cpu":
         return score_head_plain(h, w1a, w1b, b1, w2, b2, sid, rid, drop)
@@ -160,13 +177,14 @@ def _head_fwd(h, w1a, w1b, b1, w2, b2, sid, rid, drop, banded=False):
     out = torch.empty(q, dtype=torch.float32, device=h.device)
     if q == 0:
         return out
+    hk, bf16, pitch, wpack = kernel_operands(h, w1a, w1b)
     kernel = "score_head_sampled_banded" if banded else "score_head_sampled"
     _build.call(kernel, "sgs_score_head_fwd", h.device,
-                h.data_ptr(), int(h.dtype == torch.bfloat16), w1a.data_ptr(),
-                w1b.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-                sid.data_ptr(), rid.data_ptr(), drop.seed.data_ptr(),
-                drop.thresh, drop.scale, out.data_ptr(), q, n, f,
-                w1a.shape[1])
+                hk.data_ptr(), bf16, pitch, w1a.data_ptr(), w1b.data_ptr(),
+                None if wpack is None else wpack.data_ptr(), b1.data_ptr(),
+                w2.data_ptr(), b2.data_ptr(), sid.data_ptr(), rid.data_ptr(),
+                drop.seed.data_ptr(), drop.thresh, drop.scale,
+                out.data_ptr(), q, n, f, w1a.shape[1])
     return out
 
 

@@ -11,7 +11,8 @@ only the q winners back.
 On a CUDA tensor it launches K6 (``csrc/score_tiles.cu``), which replaces
 ``score_tiles.py:_make_kernel`` (behind ``_score_tiles_call``): the same
 head code and dropout mask as K3, with slot e's endpoints su[e // b] * t +
-ls[e] and rv[e // b] * t + lr[e]. On the CPU the plain version runs. The
+ls[e] and rv[e // b] * t + lr[e], and K3's dispatch on h's dtype (bf16 on
+the tensor cores, f32 on CUDA cores). On the CPU the plain version runs. The
 pass is detached by construction: it runs under ``torch.no_grad`` and
 returns a tensor that does not require grad, as the JAX op cuts the
 tangents at its inputs.
@@ -26,7 +27,7 @@ import torch
 from . import _build
 from .dropout import HeadDropout
 from .score_sampled import (PLAIN_CHUNK, _check_kernel_inputs,
-                            score_head_plain, split_head)
+                            kernel_operands, score_head_plain, split_head)
 
 
 def _round_up(x, m):
@@ -133,11 +134,12 @@ def score_head_tiles(h, fc1_kernel, fc1_bias, fc2_kernel, fc2_bias,
     out = torch.empty(ep, dtype=torch.float32, device=h.device)
     if ep == 0:
         return out
+    hk, bf16, pitch, wpack = kernel_operands(h, w1a, w1b)
     _build.call("score_head_tiles", "sgs_score_head_tiles", h.device,
-                h.data_ptr(), int(h.dtype == torch.bfloat16), w1a.data_ptr(),
-                w1b.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-                tile_ls.data_ptr(), tile_lr.data_ptr(), tile_su.data_ptr(),
-                tile_rv.data_ptr(), int(t), int(bk), drop.seed.data_ptr(),
-                drop.thresh, drop.scale, out.data_ptr(), ep, n, f,
-                w1a.shape[1])
+                hk.data_ptr(), bf16, pitch, w1a.data_ptr(), w1b.data_ptr(),
+                None if wpack is None else wpack.data_ptr(), b1.data_ptr(),
+                w2.data_ptr(), b2.data_ptr(), tile_ls.data_ptr(),
+                tile_lr.data_ptr(), tile_su.data_ptr(), tile_rv.data_ptr(),
+                int(t), int(bk), drop.seed.data_ptr(), drop.thresh,
+                drop.scale, out.data_ptr(), ep, n, f, w1a.shape[1])
     return out

@@ -184,9 +184,11 @@ def _ids(card, g, n, q, lo=0, hi=None):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n,f,k,q", [(37, 40, 50, 77), (2048, 256, 256, 4099),
-                                     (9, 3, 300, 64), (100, 130, 1, 1)])
+                                     (9, 3, 300, 64), (100, 130, 1, 1),
+                                     (2048, 256, 256, 4096 + 37)])
 @pytest.mark.parametrize("drop_rate", [0.0, 0.3])
 def test_score_head_kernel(card, dtype, n, f, k, q, drop_rate):
+    # bf16 runs on the tensor cores (csrc/head_mma.cuh), f32 on CUDA cores
     g = torch.Generator(device=card).manual_seed(2)
     h, fc1, b1, fc2, b2 = _head(card, g, n, f, k, dtype)
     s, r = _ids(card, g, n, q, -1, n + 2), _ids(card, g, n, q, -1, n + 2)
@@ -266,7 +268,8 @@ def test_score_head_bwd_kernel(card, dtype, n, f, k, q, side):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n,t,b,f,k", [(50, 16, 32, 24, 40),
                                        (2048, 128, 512, 256, 256),
-                                       (130, 64, 64, 33, 7)])
+                                       (130, 64, 64, 33, 7),
+                                       (3000, 128, 512, 256, 300)])
 def test_score_tiles_kernel(card, dtype, n, t, b, f, k):
     import numpy as np
     rng = np.random.default_rng(4)
@@ -287,6 +290,34 @@ def test_score_tiles_kernel(card, dtype, n, t, b, f, k):
                                     *tl, t, b,
                                     dr.HeadDropout.make(0.3, 9, card))
     torch.testing.assert_close(out, ref, rtol=0, atol=1e-4)
+
+
+def test_head_routes_count_one_launch_each(card):
+    """bf16 (tensor cores) and f32 (CUDA cores) each launch once under the
+    forward's own name: K3, K3 with a sorted side, K6."""
+    import numpy as np
+    n, f, k, q = 300, 64, 256, 1000
+    rng = np.random.default_rng(10)
+    ti = st.build_tile_index(rng.integers(0, n, q), rng.integers(0, n, q), n,
+                             t=64, b=128, max_overhead=100.0)
+    tl = [torch.from_numpy(a).to(card) for a in (ti.ls, ti.lr, ti.su, ti.rv)]
+    g = torch.Generator(device=card).manual_seed(10)
+    s, r = _ids(card, g, n, q).sort().values, _ids(card, g, n, q)
+    for dtype in (torch.bfloat16, torch.float32):
+        h, fc1, b1, fc2, b2 = _head(card, g, n, f, k, dtype)
+        for name, run in (
+                ("score_head_sampled", lambda: ss.score_head_sampled(
+                    h, fc1, b1, fc2, b2, s, r)),
+                ("score_head_sampled_banded", lambda: ss.score_head_sampled(
+                    h, fc1, b1, fc2, b2, s, r, sorted_side="senders")),
+                ("score_head_tiles", lambda: st.score_head_tiles(
+                    h, fc1, b1, fc2, b2, *tl, t=64, bk=128))):
+            before = dict(LAUNCHES)
+            run()
+            torch.cuda.synchronize()
+            after = dict(LAUNCHES)
+            assert after.pop(name) == before.pop(name, 0) + 1, (dtype, name)
+            assert after == before, (dtype, name)
 
 
 def test_hash32_table_on_card(card):
