@@ -8,10 +8,11 @@ Phases, each printing one JSON line:
   1. device   the card (name and power limit from nvidia-smi), the build of
               the CUDA kernels from the sources in this checkout.
      sass     the tensor-core head kernels (bf16 K3 and K6,
-              csrc/head_mma.cuh) as built: registers, spills and stack from
-              the build log's ptxas lines, dynamic shared memory, and their
-              HGMMA / HMMA instructions counted in ``cuobjdump -sass`` of
-              the library (a count of 0 fails the run).
+              csrc/head_mma.cuh; bf16 K5's three kernels,
+              csrc/head_bwd_mma.cuh) as built: registers, spills and stack
+              from the build log's ptxas lines, dynamic shared memory, and
+              their HGMMA / HMMA instructions counted in ``cuobjdump -sass``
+              of the library (a count of 0 fails the run).
   2. kernel   each kernel of the serving and training paths against its
               plain PyTorch version on the card at the path's shapes, the
               head kernels (K3 at E=1M without and with dropout 0.3, K3 with
@@ -20,8 +21,10 @@ Phases, each printing one JSON line:
               ragged E, a band too narrow and padding ids) and the fused
               SpMM K8 (F=256 and 41, weighted and not, the receiver-sorted
               edge list and its reversal): error against the stated
-              tolerance, and times (CUDA events) of the kernel, the plain
-              version and one PyTorch library call where one exists, beside
+              tolerance, and times (CUDA events over back-to-back wrapper
+              calls) of the kernel, the plain version and one PyTorch
+              library call of the same work where one exists, the kernel's
+              own device time from torch.profiler (K5: per kernel), beside
               the kernel's bound on an H100 SXM.
   3. fused_spmm  GCNConv(backend="fused") forward + backward at the
               scorer's and the backbone's widths, launch-counted, against
@@ -82,6 +85,21 @@ PIPELINE_STEPS = 10        # timed steps of each other pipeline
 GRAD_REL_TOL = 0.05        # grad_check: relative L2, card bf16 vs CPU f32
 FUSED_REL_TOL = 1e-2       # GCNConv fused vs auto: relative L2, bf16
 HEAD_MMA_KERNEL = "head_mma_kernel"   # bf16 K3 / K6 (csrc/head_mma.cuh)
+# bf16 K5's three kernels (csrc/head_bwd_mma.cuh)
+HEAD_BWD_KERNELS = ("head_bwd_mma_dz1_kernel", "head_bwd_mma_dh_kernel",
+                    "head_bwd_mma_dw_kernel")
+# the device functions each wrapper launches (profiler names hold them)
+KERNEL_FUNCS = {
+    "scatter_add": ("scatter_add_kernel",),
+    "segment_sum_scalar": ("segment_sum_smem_kernel",
+                           "segment_sum_global_kernel"),
+    "score_head_sampled": (HEAD_MMA_KERNEL,),
+    "score_head_sampled_banded": (HEAD_MMA_KERNEL,),
+    "score_head_bwd": HEAD_BWD_KERNELS,
+    "score_head_tiles": (HEAD_MMA_KERNEL,),
+    "scatter_add_sorted": ("scatter_sorted_kernel",),
+    "spmm_fused": ("spmm_kernel",),
+}
 # The learned pipelines, each with bench.py's flags, and the launches of one
 # step (conditional, sparse_edge_mlp, reg1, reg2). In every pipeline K1
 # runs once in each GCN layer's SpMM and once in each backward of one that
@@ -160,6 +178,39 @@ def cuda_ms(torch, fn, iters=20, warmup=3):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(torch, fn, funcs, iters=5):
+    """The device time per call of the kernels whose names hold one of
+    ``funcs`` over ``iters`` calls of ``fn`` under torch.profiler (after
+    one warm-up call): (total ms, {kernel name: ms})."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        hit = next((f for f in funcs if f in e.name), None)
+        if hit is not None:
+            by_name[hit] = by_name.get(hit, 0.0) \
+                + e.time_range.elapsed_us() / 1e3 / iters
+    check(bool(by_name), f"profiler saw none of {funcs}")
+    return sum(by_name.values()), by_name
+
+
+def timed(torch, name, fn, iters=20, warmup=3):
+    """A kernel's times: CUDA events over ``iters`` back-to-back wrapper
+    calls (``ms``) and its own device time from the profiler
+    (``device_ms``)."""
+    dev_ms, _ = device_ms(torch, fn, KERNEL_FUNCS[name])
+    return dict(ms=cuda_ms(torch, fn, iters=iters, warmup=warmup),
+                device_ms=dev_ms)
 
 
 def sum_tolerance(abs_sum):
@@ -292,25 +343,31 @@ def _sass_counts(lib, marker):
 
 
 def phase_sass(torch):
-    """The tensor-core head kernels as built: registers, spills and stack
-    from ptxas, their dynamic shared memory, and the count of tensor-core
-    instructions in their SASS; fails if a bf16 head kernel has none."""
+    """The tensor-core head kernels as built (the forward's and K5's):
+    registers, spills and stack from ptxas, their dynamic shared memory,
+    and the count of tensor-core instructions in their SASS; fails if one
+    of them has none."""
     from sgs_gnn_tpu_torch.ops import _build, head_mma
     lib = _build.build()
     log = Path(f"{lib}.log")
-    ptxas = _ptxas_info(log.read_text() if log.exists() else "",
-                        HEAD_MMA_KERNEL)
-    counts = _sass_counts(lib, HEAD_MMA_KERNEL)
-    emit("sass", kernels=HEAD_MMA_KERNEL, ptxas=ptxas,
-         dynamic_smem_bytes=head_mma.SMEM_BYTES, mma_instructions=counts,
-         cuobjdump=counts is not None)
-    check(bool(ptxas) or not log.exists(),
-          f"no ptxas lines for {HEAD_MMA_KERNEL} in {log.name}")
-    if counts is not None:
-        check(len(counts) >= 2, f"{HEAD_MMA_KERNEL}: {len(counts)} "
-              "instantiations in the SASS (K3 and K6 expected)")
-        bad = [k for k, c in counts.items() if c["HGMMA"] + c["HMMA"] == 0]
-        check(not bad, f"no tensor-core instructions in {bad}")
+    text = log.read_text() if log.exists() else ""
+    smem = dict(head_mma.bwd_smem_bytes(NHID), fwd=head_mma.SMEM_BYTES)
+    for marker, smem_key, want in ((HEAD_MMA_KERNEL, "fwd", 2),) + tuple(
+            (k, k.split("_")[3], 1) for k in HEAD_BWD_KERNELS):
+        ptxas = _ptxas_info(text, marker)
+        counts = _sass_counts(lib, marker)
+        emit("sass", kernels=marker, ptxas=ptxas,
+             dynamic_smem_bytes=smem[smem_key],
+             spill_bytes=sum(v.get("spill_stores", 0) for v in ptxas.values()),
+             mma_instructions=counts, cuobjdump=counts is not None)
+        check(bool(ptxas) or not log.exists(),
+              f"no ptxas lines for {marker} in {log.name}")
+        if counts is not None:
+            check(len(counts) >= want, f"{marker}: {len(counts)} "
+                  f"instantiations in the SASS ({want} expected)")
+            bad = [k for k, c in counts.items()
+                   if c["HGMMA"] + c["HMMA"] == 0]
+            check(not bad, f"no tensor-core instructions in {bad}")
 
 
 def phase_kernels(torch, g):
@@ -345,7 +402,8 @@ def phase_kernels(torch, g):
             case=case, max_abs_err=float(err.max()),
             tolerance="1e-5 * sum|vals| per row + 1e-6 (f32 sums reordered "
                       "by atomics)",
-            ms=cuda_ms(torch, lambda: sc.scatter_add(vals, ids, N_NODES)),
+            **timed(torch, "scatter_add",
+                    lambda: sc.scatter_add(vals, ids, N_NODES)),
             plain_ms=cuda_ms(torch, lambda: sc.scatter_add_plain(
                 vals, ids, N_NODES)),
             library_ms=cuda_ms(torch, lambda: torch.zeros(
@@ -372,7 +430,8 @@ def phase_kernels(torch, g):
             case=case, max_abs_err=float(err.max()),
             tolerance="1e-5 * sum|w| per node + 1e-6 (f32 sums reordered "
                       "by atomics)",
-            ms=cuda_ms(torch, lambda: sc.segment_sum_scalar(w, ids, N_NODES)),
+            **timed(torch, "segment_sum_scalar",
+                    lambda: sc.segment_sum_scalar(w, ids, N_NODES)),
             plain_ms=cuda_ms(torch, lambda: sc.segment_sum_scalar_plain(
                 w, ids, N_NODES)),
             library_ms=cuda_ms(torch, lambda: torch.bincount(
@@ -413,8 +472,10 @@ def phase_kernels(torch, g):
             case=case, max_abs_err=err,
             tolerance="1e-4 abs on probabilities (same bf16-rounded "
                       "features and mask, f32 sums in another order)",
-            ms=cuda_ms(torch, lambda: ss.score_head_sampled(
-                h, fc1, b1, fc2, b2, senders, receivers, **kw), iters=10),
+            **timed(torch, "score_head_sampled",
+                    lambda: ss.score_head_sampled(
+                        h, fc1, b1, fc2, b2, senders, receivers, **kw),
+                    iters=10),
             plain_ms=cuda_ms(torch, lambda: ss.score_head_plain(
                 h, *split, senders, receivers, drop), iters=10),
             library_ms=None,
@@ -513,9 +574,10 @@ def phase_head_kernels(torch, g, results):
               tolerance="1e-4 abs on probabilities (same bf16-rounded "
                         "features and mask, f32 sums in another order); "
                         "sorted_side=receivers within 1e-6 of senders",
-              ms=cuda_ms(torch, lambda: ss.score_head_sampled(
-                  h, fc1, b1, fc2, b2, s, r, drop_rate=DROP, seed=drop.seed,
-                  sorted_side="senders")),
+              **timed(torch, "score_head_sampled_banded",
+                      lambda: ss.score_head_sampled(
+                          h, fc1, b1, fc2, b2, s, r, drop_rate=DROP,
+                          seed=drop.seed, sorted_side="senders")),
               plain_ms=cuda_ms(torch, lambda: ss.score_head_plain(
                   h, *split, s, r, drop), iters=5),
               library_ms=None,
@@ -535,6 +597,10 @@ def phase_head_kernels(torch, g, results):
         sq, rq, dp = s[:q], r[:q], dp_all[:q]
         got = ss._head_bwd(h, *split, sq, rq, dp, drop)
         want = ss.score_head_bwd_plain(h, *split, sq, rq, dp, drop)
+
+        def run(sq=sq, rq=rq, dp=dp):
+            return ss._head_bwd(h, *split, sq, rq, dp, drop)
+        k5_ms, k5_split = device_ms(torch, run, HEAD_BWD_KERNELS)
         scale = _head_bwd_abs_sums(torch, ss, h, *split, sq, rq, dp, drop)
         rel_max = {n: _rel_max(a, b) for n, a, b in zip(names, got, want)}
         rel_terms = {n: float(((a.float() - b.float()).abs()
@@ -562,8 +628,8 @@ def phase_head_kernels(torch, g, results):
             tolerance="per element 2^-9 of the summed |terms| + 1e-6 (rare "
                       "one-ulp flips at the two bf16 casts), and 1e-3 of "
                       "max|plain| per output",
-            ms=cuda_ms(torch, lambda: ss._head_bwd(h, *split, sq, rq, dp,
-                                                   drop)),
+            ms=cuda_ms(torch, run), device_ms=k5_ms,
+            device_ms_by_kernel=k5_split,
             plain_ms=cuda_ms(torch, lambda: ss.score_head_bwd_plain(
                 h, *split, sq, rq, dp, drop), iters=5),
             library_ms=None,
@@ -589,8 +655,9 @@ def phase_head_kernels(torch, g, results):
               max_abs_err=err,
               tolerance="1e-4 abs on probabilities (same bf16-rounded "
                         "features and mask, f32 sums in another order)",
-              ms=cuda_ms(torch, lambda: st.score_head_tiles(
-                  h, fc1, b1, fc2, b2, *tile, **kw), iters=10),
+              **timed(torch, "score_head_tiles",
+                      lambda: st.score_head_tiles(h, fc1, b1, fc2, b2, *tile,
+                                                  **kw), iters=10),
               plain_ms=cuda_ms(torch, lambda: st.score_head_tiles_plain(
                   h, *split, *tile, g.tile_t, g.tile_b, drop), iters=3,
                   warmup=1),
@@ -649,8 +716,8 @@ def phase_sparse_kernels(torch, g, results):
             case=case, items_kept=kept, max_abs_err=float(err.max()),
             tolerance="1e-5 * sum|vals| per row + 1e-6 (f32 sums reordered "
                       "by atomics); the same items dropped",
-            ms=cuda_ms(torch, lambda: sc.scatter_add_sorted(v, i, N_NODES,
-                                                            b)),
+            **timed(torch, "scatter_add_sorted",
+                    lambda: sc.scatter_add_sorted(v, i, N_NODES, b)),
             plain_ms=cuda_ms(torch, lambda: sc.scatter_add_sorted_plain(
                 v, i, N_NODES, b), iters=5),
             library_ms=cuda_ms(torch, lambda: torch.zeros(
@@ -662,7 +729,20 @@ def phase_sparse_kernels(torch, g, results):
     results["scatter_add_sorted"] = dict(cases[0], cases=cases)
 
     # K8: the whole receiver-sorted edge list and its reversal (the
-    # backward's, receivers unsorted), F = nhid and classes
+    # backward's, receivers unsorted), F = nhid and classes. The library's
+    # yardstick does the same work: torch.sparse.mm of a CSR that holds
+    # K8's E nonzeros as they are (duplicate (receiver, sender) pairs kept;
+    # weights rounded to x's type, as K8 rounds them), built outside the
+    # timed region
+    def csr(s, r, w, dtype):
+        order = torch.argsort(r, stable=True)
+        crow = torch.zeros(N_NODES + 1, dtype=torch.int64, device=dev)
+        crow[1:] = torch.cumsum(torch.bincount(r.long(), minlength=N_NODES),
+                                0)
+        return torch.sparse_csr_tensor(
+            crow, s.long()[order], w.to(dtype).float()[order],
+            (N_NODES, N_NODES))
+
     cases = []
     for f in (NHID, CLASSES):
         x = torch.randn(N_NODES, f, generator=gen, device=dev).to(
@@ -682,33 +762,55 @@ def phase_sparse_kernels(torch, g, results):
                 err = (out - ref).abs()
                 check(bool((err <= tol).all()), f"spmm_fused {case}: error "
                       f"{float(err.max())} above tolerance")
-                # the library's A_w as CSR (weights rounded to x's type, as
-                # K8 rounds them), built outside the timed region
-                a_w = torch.sparse_coo_tensor(
-                    torch.stack([r.long(), s.long()]),
-                    w.to(x.dtype).float(), (N_NODES, N_NODES)).coalesce() \
-                    .to_sparse_csr()
+                a_w = csr(s, r, w, x.dtype)
+                lib_err = float((torch.sparse.mm(a_w, xf) - ref).abs().max())
                 w_auto = w if weighted else None
                 nbytes = 12 * N_EDGES + N_NODES * f * (2 + 4)
                 cases.append(dict(
                     case=case, max_abs_err=float(err.max()),
                     tolerance="1e-5 * sum|w x| per row + 1e-6 (f32 sums "
                               "reordered by atomics)",
-                    ms=cuda_ms(torch, lambda: sp._spmm_fused(s, r, w, x,
-                                                             N_NODES)),
+                    **timed(torch, "spmm_fused",
+                            lambda: sp._spmm_fused(s, r, w, x, N_NODES)),
                     plain_ms=cuda_ms(torch, lambda: sp.spmm_fused_plain(
                         s, r, w, x, N_NODES), iters=5),
                     library_ms=cuda_ms(torch, lambda: torch.sparse.mm(a_w,
                                                                       xf)),
-                    library="torch.sparse.mm of A_w as CSR (f32) by x (f32)",
+                    library="torch.sparse.mm of A_w as CSR (f32) with K8's "
+                            "E nonzeros (duplicates kept) by x (f32)",
+                    library_max_abs_err=lib_err,
                     auto_route_ms=cuda_ms(torch, lambda: sp.spmm(
                         s, r, w_auto, x, N_NODES)),
                     bound_ms=max(nbytes / HBM_BPS,
                                  2 * N_EDGES * f / F32_FLOPS) * 1e3,
                     bound_by="operations"))
+                if f == NHID and not weighted and order == "receiver-sorted":
+                    cases[-1]["coalesced"] = _spmm_coalesced(
+                        torch, sp, s, r, w, x, csr)
                 emit("kernel", name="spmm_fused", **cases[-1])
     # the main case: the scorer layer's forward (F = nhid, unweighted)
     results["spmm_fused"] = dict(cases[0], cases=cases)
+
+
+def _spmm_coalesced(torch, sp, s, r, w, x, csr):
+    """K8 and torch.sparse.mm on the coalesced edge list: one nonzero per
+    distinct (receiver, sender) pair with the pair's weights summed."""
+    key = r.long() * N_NODES + s.long()
+    pairs, inv = torch.unique(key, return_inverse=True)
+    wu = torch.zeros(pairs.shape[0], device=w.device).index_add_(0, inv, w)
+    ru = (pairs // N_NODES).int()
+    su = (pairs % N_NODES).int()
+    ref = sp.spmm_fused_plain(su, ru, wu, x, N_NODES)
+    err = (sp._spmm_fused(su, ru, wu, x, N_NODES) - ref).abs()
+    tol = sum_tolerance(sp.spmm_fused_plain(su, ru, wu, x.abs(), N_NODES))
+    check(bool((err <= tol).all()), f"spmm_fused coalesced: error "
+          f"{float(err.max())} above tolerance")
+    a_u = csr(su, ru, wu, x.dtype)
+    xf = x.float()
+    return dict(pairs=int(pairs.shape[0]), max_abs_err=float(err.max()),
+                ms=cuda_ms(torch, lambda: sp._spmm_fused(su, ru, wu, x,
+                                                         N_NODES)),
+                library_ms=cuda_ms(torch, lambda: torch.sparse.mm(a_u, xf)))
 
 
 def phase_serve(torch, arrays):
@@ -1095,7 +1197,7 @@ KERNELS = {
     "score_head_sampled_banded": ("sgs_gnn_tpu_torch/csrc/head_mma.cuh",
                                   "sgs_gnn_tpu/ops/score_sampled.py:368"),
     # row 5, full and banded
-    "score_head_bwd": ("sgs_gnn_tpu_torch/csrc/score_sampled.cu",
+    "score_head_bwd": ("sgs_gnn_tpu_torch/csrc/head_bwd_mma.cuh",
                        "sgs_gnn_tpu/ops/score_sampled.py:184"),
     "score_head_tiles": ("sgs_gnn_tpu_torch/csrc/head_mma.cuh",
                          "sgs_gnn_tpu/ops/score_tiles.py:115"),
@@ -1104,9 +1206,10 @@ KERNELS = {
     "spmm_fused": ("sgs_gnn_tpu_torch/csrc/spmm.cu",
                    "sgs_gnn_tpu/ops/spmm_pallas.py:42"),
 }
-# the bf16 forward head (csrc/head_mma.cuh): rows 3, 4 and 6
+# the bf16 head (csrc/head_mma.cuh: rows 3, 4 and 6; csrc/head_bwd_mma.cuh:
+# row 5)
 TENSOR_CORE = ("score_head_sampled", "score_head_sampled_banded",
-               "score_head_tiles")
+               "score_head_bwd", "score_head_tiles")
 
 
 def main():
@@ -1147,6 +1250,7 @@ def main():
             source=source, replaces=replaces,
             launches=sum(by_path.values()), launches_by_path=by_path,
             max_abs_err=k["max_abs_err"], ms=k["ms"],
+            device_ms=k["device_ms"],
             plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
             bound_by=k["bound_by"], bound_share=k["bound_ms"] / k["ms"],
             library_ms=k["library_ms"], matched=True, case=k["case"]))

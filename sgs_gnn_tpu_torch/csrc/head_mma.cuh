@@ -48,9 +48,9 @@
 //     a 2-CTA cluster multicasting the chunks is left out.
 //  4. the dropout hash on the critical path: the hash's inner fmix32
 //     depends only on the seed and the counter's high word, so the
-//     epilogue computes it once per row and K tile when the row's counters
-//     of the tile share their high word (every row at q*K < 2^32), else
-//     per unit; the mask is bit-identical to hash32 (ops/dropout.py).
+//     epilogue computes it once per row and K tile when the tile's counters
+//     share their high word (every tile at q*K < 2^32), else per unit; the
+//     mask is bit-identical to hash32 (ops/dropout.py).
 //     The hash takes a third of the time with dropout (tools/
 //     tune_head_mma.py, no_hash); computing the keep bits between the
 //     MMAs' issue and their wait, to overlap them, was measured slower.
@@ -146,24 +146,34 @@ __device__ __forceinline__ void wg_sync(int wg) {
   asm volatile("bar.sync %0, 128;\n" :: "r"(wg + 1) : "memory");
 }
 
+// the 256 threads of both consumer warpgroups (named barrier 3)
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 3, %0;\n" :: "n"(kConsumers) : "memory");
+}
+
 __device__ __forceinline__ void st_shared_v4(uint32_t addr, uint4 v) {
   asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n"
                :: "r"(addr), "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
                : "memory");
 }
 
-// wgmma matrix descriptor of an operand at `addr` in the layout above
-__device__ __forceinline__ uint64_t desc(uint32_t addr) {
+// wgmma matrix descriptor (no swizzle) of an operand at `addr` whose core
+// matrices are `lbo` and `sbo` bytes apart: K-major, lbo steps 8 columns of
+// k and sbo 8 rows of m or n; MN-major, lbo steps 8 rows of k and sbo 8
+// columns of m or n. The default is the K-major layout above.
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo = kLbo,
+                                         uint32_t sbo = kSbo) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(kLbo >> 4) << 16) |
-         (static_cast<uint64_t>(kSbo >> 4) << 32);
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32);
 }
 
 // keeps the compiler from moving accumulator reads or writes across the
 // asynchronous MMAs
-__device__ __forceinline__ void fence_acc(float (&d)[128]) {
+template <int kN>
+__device__ __forceinline__ void fence_acc(float (&d)[kN]) {
 #pragma unroll
-  for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+  for (int i = 0; i < kN; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -186,7 +196,9 @@ __device__ __forceinline__ void wgmma_wait() {
                    SGS_D16(i + 48)
 
 // d (64 x 256, f32) += A (64 x 16, bf16) * B (16 x 256, bf16), both from
-// shared memory, K-major
+// shared memory; kTransA / kTransB = 0: K-major, 1: MN-major (the operand's
+// M or N index runs along the 16-byte rows of its core matrices)
+template <int kTransA = 0, int kTransB = 0>
 __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128],
                                                  uint64_t da, uint64_t db) {
   const int accumulate = 1;
@@ -211,9 +223,33 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128],
       "%104, %105, %106, %107, %108, %109, %110, %111, "
       "%112, %113, %114, %115, %116, %117, %118, %119, "
       "%120, %121, %122, %123, %124, %125, %126, %127}, "
-      "%128, %129, p, 1, 1, 0, 0;\n"
+      "%128, %129, p, 1, 1, %131, %132;\n"
       "}\n"
       : SGS_D64(0), SGS_D64(64)
+      : "l"(da), "l"(db), "r"(accumulate), "n"(kTransA), "n"(kTransB));
+}
+
+// d (64 x 128, f32) += A (64 x 16, bf16) * B (16 x 128, bf16), both from
+// shared memory, K-major
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
+                                                 uint64_t db) {
+  const int accumulate = 1;
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : SGS_D64(0)
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
@@ -247,6 +283,50 @@ __device__ __forceinline__ uint32_t hash_inner(uint32_t seed, uint32_t hi) {
 // full hash per unit.
 enum DropMode { kNoDrop, kHoisted, kPerUnit };
 
+// Whether unit `col` of the row whose counters start at `rowc` is kept
+// (its inner hash word `inner` when kMode is kHoisted).
+template <DropMode kMode>
+__device__ __forceinline__ bool unit_kept(unsigned long long rowc, int col,
+                                          uint32_t inner, uint32_t seed,
+                                          uint32_t thresh) {
+  if (kMode == kNoDrop) return true;
+  const unsigned long long c = rowc + static_cast<unsigned>(col);
+  const uint32_t in = kMode == kHoisted
+                          ? inner
+                          : hash_inner(seed, static_cast<uint32_t>(c >> 32));
+  return fmix32(static_cast<uint32_t>(c) ^ in) >= thresh;
+}
+
+// The dropout counters of this thread's epilogue rows (e_wg + r0 and
+// e_wg + r0 + 8) and their inner hash words for the K tile starting at
+// column n0.
+__device__ __forceinline__ void row_counters(long long e_wg, int r0,
+                                             int hidden, int n0,
+                                             uint32_t seed,
+                                             unsigned long long (&rowc)[2],
+                                             uint32_t (&inner)[2]) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const unsigned long long e =
+        static_cast<unsigned long long>(e_wg + r0 + 8 * r);
+    rowc[r] = e * static_cast<unsigned>(hidden);
+    inner[r] = hash_inner(seed, static_cast<uint32_t>((rowc[r] + n0) >> 32));
+  }
+}
+
+// Whether every dropout counter e * K + c of 128-edge tile t over the K
+// tile's columns [n0, n0 + 256) shares one high word (every tile at
+// q * K < 2^32): then each row's inner hash word serves all its units.
+// Decided per tile, so the epilogue's branch is uniform across the warp
+// (the backward's epilogue shuffles inside it: under a per-thread branch
+// ptxas wrapped the shuffles in WARPSYNC.COLLECTIVE loops and spilled).
+__device__ __forceinline__ bool tile_hoist(long long t, int hidden, int n0) {
+  const unsigned long long k = static_cast<unsigned>(hidden);
+  const unsigned long long e0 = static_cast<unsigned long long>(t) * kRows;
+  const int n_end = min(hidden, n0 + kN) - 1;
+  return ((e0 * k + n0) >> 32) == (((e0 + kRows - 1) * k + n_end) >> 32);
+}
+
 // This thread's share of one K tile's logits: rows r0 (part[0]) and r0 + 8
 // (part[1]) of its warp, columns n0 + 8 j + 2 (lane % 4) + {0, 1}, as the
 // m64nNk16 accumulator layout holds them (d[4 j + 2 r + x]).
@@ -268,19 +348,189 @@ __device__ __forceinline__ void tile_logits(
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
           float zr = fmaxf(acc[4 * j + 2 * r + x] + bias, 0.f);
-          if (kMode != kNoDrop) {
-            const unsigned long long c = rowc[r] + static_cast<unsigned>(col);
-            const uint32_t in =
-                kMode == kHoisted
-                    ? inner[r]
-                    : hash_inner(seed, static_cast<uint32_t>(c >> 32));
-            zr = fmix32(static_cast<uint32_t>(c) ^ in) >= thresh ? zr * scale
-                                                                 : 0.f;
-          }
+          if (kMode != kNoDrop)
+            zr = unit_kept<kMode>(rowc[r], col, inner[r], seed, thresh)
+                     ? zr * scale
+                     : 0.f;
           part[r] += zr * wout;
         }
       }
     }
+  }
+}
+
+// One consumer thread's part of the row gathers: rows grow[j] = 16 wwarp +
+// lane % 8 + 8 j of its warpgroup's 64, 16-byte column segments lane / 8
+// and lane / 8 + 4 of each 64-column chunk, and where they land in an A
+// half (aoff[j][x]); sr / rr: the endpoint rows of its two rows, -1 for a
+// zero row.
+struct Gather {
+  int grow[2];
+  uint32_t aoff[2][2];
+  int seg0;
+  int sr[2], rr[2];
+
+  __device__ __forceinline__ void init(int wwarp, int lane) {
+    seg0 = lane >> 3;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      grow[j] = 16 * wwarp + (lane & 7) + 8 * j;
+#pragma unroll
+      for (int x = 0; x < 2; ++x)
+        aoff[j][x] = (grow[j] >> 3) * kSbo + (seg0 + 4 * x) * kLbo +
+                     (grow[j] & 7) * 16;
+    }
+  }
+};
+
+// The 16-byte segments of chunk c of h's rows sr / rr (zero past the row
+// pitch or for row -1).
+__device__ __forceinline__ void gather_chunk(
+    const __nv_bfloat16* __restrict__ h, int pitch, const Gather& gt, int c,
+    uint4 (&hu)[2][2], uint4 (&hv)[2][2]) {
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+      const int col = c * kChunk + (gt.seg0 + 4 * x) * 8;
+      const bool in = col < pitch;
+      hu[j][x] = (in && gt.sr[j] >= 0)
+                     ? __ldg(reinterpret_cast<const uint4*>(
+                           h + static_cast<long long>(gt.sr[j]) * pitch + col))
+                     : zero;
+      hv[j][x] = (in && gt.rr[j] >= 0)
+                     ? __ldg(reinterpret_cast<const uint4*>(
+                           h + static_cast<long long>(gt.rr[j]) * pitch + col))
+                     : zero;
+    }
+}
+
+// acc = the first layer without b1 of the warpgroup's 64 rows over one K
+// tile: for each feature chunk, A_prod / A_diff of the gathered segments go
+// into one of the warpgroup's two A buffers at `abase` (each warp writes
+// only the 16 rows its share of the MMA reads) and meet the chunk's W1a /
+// W1b rows from the weight ring; `g` counts the ring's chunks consumed. The
+// next chunk's loads are in flight while the current chunk's MMAs run.
+__device__ __forceinline__ void ktile_mma(
+    float (&acc)[128], const __nv_bfloat16* __restrict__ h, int pitch,
+    const Gather& gt, uint32_t abase, uint32_t sbase, uint32_t full0,
+    uint32_t empty0, int chunks, int wg, long long& g) {
+  const int lane = threadIdx.x & 31;
+  uint4 hu[2][2], hv[2][2];
+  // A_prod / A_diff of the loaded segments into buffer `buf`, then make the
+  // warpgroup's stores visible to its MMAs
+  auto store = [&](int buf) {
+    const uint32_t a = abase + buf * kABufBytes;
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {
+        uint4 p, d;
+        prod_diff(hu[j][x], hv[j][x], p, d);
+        st_shared_v4(a + gt.aoff[j][x], p);
+        st_shared_v4(a + kAHalfBytes + gt.aoff[j][x], d);
+      }
+    fence_async_smem();
+    wg_sync(wg);
+  };
+
+#pragma unroll
+  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+  gather_chunk(h, pitch, gt, 0, hu, hv);
+  store(0);
+  for (int c = 0; c < chunks; ++c, ++g) {
+    const int s = static_cast<int>(g % kStages);
+    mbar_wait(full0 + 8 * s, static_cast<uint32_t>(g / kStages) & 1u);
+    const uint32_t a = abase + (c & 1) * kABufBytes;
+    const uint32_t w = sbase + s * kChunkBytes;
+    fence_acc(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < kChunk / 16; ++k)
+      wgmma_m64n256k16(acc, desc(a + 256 * k), desc(w + 256 * k));
+#pragma unroll
+    for (int k = 0; k < kChunk / 16; ++k)
+      wgmma_m64n256k16(acc, desc(a + kAHalfBytes + 256 * k),
+                       desc(w + kHalfBytes + 256 * k));
+    wgmma_commit();
+    fence_acc(acc);
+    if (c + 1 < chunks) gather_chunk(h, pitch, gt, c + 1, hu, hv);
+    // the previous chunk's MMAs are done: its weight stage goes back to the
+    // producer, its A buffer takes the next chunk
+    wgmma_wait<1>();
+    fence_acc(acc);
+    if (c > 0) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty0 + 8 * ((g - 1) % kStages));
+    }
+    if (c + 1 < chunks) store((c + 1) & 1);
+  }
+  wgmma_wait<0>();
+  fence_acc(acc);
+  __syncwarp();
+  if (lane == 0) mbar_arrive(empty0 + 8 * ((g - 1) % kStages));
+}
+
+// The producer warpgroup of a kernel on the weight ring: gives its
+// registers to the consumers, and one thread streams `steps` chunks per
+// 128-edge tile (step i of a tile is chunk i % period of the packed image),
+// in the order the consumers use them.
+__device__ __forceinline__ void weight_producer(
+    const __nv_bfloat16* __restrict__ wpack, uint32_t sbase, uint32_t full0,
+    uint32_t empty0, long long tiles, int steps, int period) {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
+               :: "n"(kProducerRegs));
+  if (threadIdx.x != kConsumers) return;
+  long long g = 0;
+  for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
+    for (int i = 0; i < steps; ++i, ++g) {
+      const int s = static_cast<int>(g % kStages);
+      if (g >= kStages)
+        mbar_wait(empty0 + 8 * s, static_cast<uint32_t>(g / kStages - 1) & 1u);
+      mbar_expect_tx(full0 + 8 * s, kChunkBytes);
+      bulk_load(sbase + s * kChunkBytes,
+                wpack + static_cast<long long>(i % period) * (kChunkBytes / 2),
+                kChunkBytes, full0 + 8 * s);
+    }
+  }
+}
+
+// The endpoint rows of this thread's two gathered rows of 128-edge tile t
+// (K3: sid / rid; K6: through the tile index).
+template <bool kTiles>
+__device__ __forceinline__ void tile_rows(
+    Gather& gt, long long e_wg, long long q, const int* __restrict__ sid,
+    const int* __restrict__ rid, const int* __restrict__ su,
+    const int* __restrict__ rv, int tile_t, int tile_b, int n_rows) {
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const long long e = e_wg + gt.grow[j];
+    int s = -1, r = -1;
+    if (e < q) {
+      s = sid[e];
+      r = rid[e];
+      if (kTiles) {
+        const long long b = e / tile_b;
+        s += su[b] * tile_t;
+        r += rv[b] * tile_t;
+      }
+    }
+    gt.sr[j] = sgs::head::checked_id(s, n_rows);
+    gt.rr[j] = sgs::head::checked_id(r, n_rows);
+  }
+}
+
+// Initializes the barriers of a ring of kS stages (thread 0): full[s] at
+// full0 + 8 s, empty[s] at empty0 + 8 s; the caller syncs.
+template <int kS = kStages>
+__device__ __forceinline__ void init_ring(uint32_t full0, uint32_t empty0) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kS; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, kConsumers / 32);   // one arrive per warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
 }
 
@@ -308,38 +558,14 @@ head_mma_kernel(const __nv_bfloat16* __restrict__ h, int pitch,
   const uint32_t sbase = smem_u32(smem);
   const uint32_t full0 = sbase + kSmemBar;       // full[s]: full0 + 8 s
   const uint32_t empty0 = full0 + 8 * kStages;   // empty[s]
-  if (tid == 0) {
-    for (int s = 0; s < kStages; ++s) {
-      mbar_init(full0 + 8 * s, 1);
-      mbar_init(empty0 + 8 * s, kConsumers / 32);   // one arrive per warp
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
+  init_ring(full0, empty0);
   __syncthreads();
   const long long tiles = (q + kRows - 1) / kRows;
   const int steps = ktiles * chunks;   // weight chunks per tile
 
   if (warp >= kConsumers / 32) {
-    // producer warpgroup: its registers go to the consumers; one thread
-    // streams the weight chunks through the ring, in the order the
-    // consumers use them (every tile: K tile outer, chunk inner)
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
-                 :: "n"(kProducerRegs));
-    if (tid == kConsumers) {
-      long long g = 0;
-      for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
-        for (int i = 0; i < steps; ++i, ++g) {
-          const int s = static_cast<int>(g % kStages);
-          if (g >= kStages)
-            mbar_wait(empty0 + 8 * s,
-                      static_cast<uint32_t>(g / kStages - 1) & 1u);
-          mbar_expect_tx(full0 + 8 * s, kChunkBytes);
-          bulk_load(sbase + s * kChunkBytes,
-                    wpack + static_cast<long long>(i) * (kChunkBytes / 2),
-                    kChunkBytes, full0 + 8 * s);
-        }
-      }
-    }
+    // every tile: K tile outer, chunk inner
+    weight_producer(wpack, sbase, full0, empty0, tiles, steps, steps);
     return;
   }
 
@@ -349,140 +575,31 @@ head_mma_kernel(const __nv_bfloat16* __restrict__ h, int pitch,
   const int wg = warp >> 2;
   const int wwarp = warp & 3;
   const uint32_t abase = sbase + kSmemA + wg * 2 * kABufBytes;
-  // gathers: rows grow[j] = 16 wwarp + lane % 8 + 8 j of the warpgroup's 64,
-  // 16-byte column segments lane / 8 and lane / 8 + 4 of each chunk
-  const int seg0 = lane >> 3;
-  int grow[2];
-  uint32_t aoff[2][2];      // [row j][segment half]: offset in an A half
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    grow[j] = 16 * wwarp + (lane & 7) + 8 * j;
-#pragma unroll
-    for (int x = 0; x < 2; ++x)
-      aoff[j][x] = (grow[j] >> 3) * kSbo + (seg0 + 4 * x) * kLbo +
-                   (grow[j] & 7) * 16;
-  }
+  Gather gt;
+  gt.init(wwarp, lane);
   // epilogue rows: r0 = 16 wwarp + lane / 4 and r0 + 8
   const int r0 = 16 * wwarp + (lane >> 2);
   const uint32_t seed = static_cast<uint32_t>(seed_p[0]);
   const float bias2 = b2[0];
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
 
   long long g = 0;   // weight chunks consumed
 
   for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
     const long long e_wg = t * kRows + wg * kWgRows;
-    int sr[2], rr[2];   // endpoint rows of the gathered rows, -1: zero row
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const long long e = e_wg + grow[j];
-      int s = -1, r = -1;
-      if (e < q) {
-        s = sid[e];
-        r = rid[e];
-        if (kTiles) {
-          const long long b = e / tile_b;
-          s += su[b] * tile_t;
-          r += rv[b] * tile_t;
-        }
-      }
-      sr[j] = sgs::head::checked_id(s, n_rows);
-      rr[j] = sgs::head::checked_id(r, n_rows);
-    }
+    tile_rows<kTiles>(gt, e_wg, q, sid, rid, su, rv, tile_t, tile_b, n_rows);
     float logit[2] = {0.f, 0.f};
 
     for (int kt = 0; kt < ktiles; ++kt) {
-      uint4 hu[2][2], hv[2][2];
-      // the 16-byte segments of chunk c for this thread's rows
-      auto load = [&](int c) {
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-#pragma unroll
-          for (int x = 0; x < 2; ++x) {
-            const int col = c * kChunk + (seg0 + 4 * x) * 8;
-            const bool in = col < pitch;
-            hu[j][x] = (in && sr[j] >= 0)
-                           ? __ldg(reinterpret_cast<const uint4*>(
-                                 h + static_cast<long long>(sr[j]) * pitch +
-                                 col))
-                           : zero;
-            hv[j][x] = (in && rr[j] >= 0)
-                           ? __ldg(reinterpret_cast<const uint4*>(
-                                 h + static_cast<long long>(rr[j]) * pitch +
-                                 col))
-                           : zero;
-          }
-      };
-      // A_prod / A_diff of those segments into buffer `buf`, then make the
-      // warpgroup's stores visible to its MMAs
-      auto store = [&](int buf) {
-        const uint32_t a = abase + buf * kABufBytes;
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-#pragma unroll
-          for (int x = 0; x < 2; ++x) {
-            uint4 p, d;
-            prod_diff(hu[j][x], hv[j][x], p, d);
-            st_shared_v4(a + aoff[j][x], p);
-            st_shared_v4(a + kAHalfBytes + aoff[j][x], d);
-          }
-        fence_async_smem();
-        wg_sync(wg);
-      };
-
       float acc[128];
-#pragma unroll
-      for (int i = 0; i < 128; ++i) acc[i] = 0.f;
-      load(0);
-      store(0);
-      for (int c = 0; c < chunks; ++c, ++g) {
-        const int s = static_cast<int>(g % kStages);
-        mbar_wait(full0 + 8 * s, static_cast<uint32_t>(g / kStages) & 1u);
-        const uint32_t a = abase + (c & 1) * kABufBytes;
-        const uint32_t w = sbase + s * kChunkBytes;
-        fence_acc(acc);
-        wgmma_fence();
-#pragma unroll
-        for (int k = 0; k < kChunk / 16; ++k)
-          wgmma_m64n256k16(acc, desc(a + 256 * k), desc(w + 256 * k));
-#pragma unroll
-        for (int k = 0; k < kChunk / 16; ++k)
-          wgmma_m64n256k16(acc, desc(a + kAHalfBytes + 256 * k),
-                           desc(w + kHalfBytes + 256 * k));
-        wgmma_commit();
-        fence_acc(acc);
-        if (c + 1 < chunks) load(c + 1);
-        // the previous chunk's MMAs are done: its weight stage goes back
-        // to the producer, its A buffer takes the next chunk
-        wgmma_wait<1>();
-        fence_acc(acc);
-        if (c > 0) {
-          __syncwarp();
-          if (lane == 0) mbar_arrive(empty0 + 8 * ((g - 1) % kStages));
-        }
-        if (c + 1 < chunks) store((c + 1) & 1);
-      }
-      wgmma_wait<0>();
-      fence_acc(acc);
-      __syncwarp();
-      if (lane == 0) mbar_arrive(empty0 + 8 * ((g - 1) % kStages));
+      ktile_mma(acc, h, pitch, gt, abase, sbase, full0, empty0, chunks, wg,
+                g);
 
       // epilogue: + b1, relu, dropout, . w2 over this K tile's columns
       const int n0 = kt * kN;
-      const int n_end = min(hidden, n0 + kN) - 1;
       unsigned long long rowc[2];
       uint32_t inner[2];
-      bool hoist = true;
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const unsigned long long e =
-            static_cast<unsigned long long>(e_wg + r0 + 8 * r);
-        rowc[r] = e * static_cast<unsigned>(hidden);
-        const uint32_t hi = static_cast<uint32_t>((rowc[r] + n0) >> 32);
-        inner[r] = hash_inner(seed, hi);
-        hoist = hoist &&
-                hi == static_cast<uint32_t>((rowc[r] + n_end) >> 32);
-      }
+      row_counters(e_wg, r0, hidden, n0, seed, rowc, inner);
+      const bool hoist = tile_hoist(t, hidden, n0);
       float part[2] = {0.f, 0.f};
       if (thresh == 0u)
         tile_logits<kNoDrop>(acc, part, b1, w2, n0, hidden, rowc, inner,

@@ -20,7 +20,9 @@
 // sgs_gnn_tpu/ops/score_sampled.py:_make_bwd_kernel (behind _bwd_call, full
 // and banded). The TPU grid ran in order and carried dh and the weight
 // gradients in VMEM accumulators from step to step; Hopper blocks run in no
-// order, so the work is split in two kernels on the stream:
+// order, so the work is split in kernels on the stream. bf16 h runs three
+// tensor-core kernels (head_bwd_mma.cuh, which says how); f32 h the two
+// CUDA-core kernels below:
 //   1. edge pass (grid-stride over 64-edge tiles): recompute z, the dropout
 //      mask (regenerated from the same seed and counters) and p; dlogit =
 //      dp*p*(1-p); dz1 (cast to h's type, written to a (q, K) scratch);
@@ -37,6 +39,7 @@
 // Cast points follow the JAX kernel (score_sampled.py:248, 260-261): dz1
 // and dhu/dhv are rounded to h's type; db1 sums dz1 before the cast.
 // Bound: operations, 3x the forward's (~0.16 ms at q=200k on tensor cores).
+#include "head_bwd_mma.cuh"
 #include "head_mma.cuh"
 #include "score_head.cuh"
 
@@ -429,22 +432,28 @@ extern "C" int sgs_score_head_fwd(const void* h, int h_bf16, int pitch,
                         scale, out, q, n_rows, feat, hidden, s);
 }
 
-extern "C" int sgs_score_head_bwd(const void* h, int h_bf16, const void* w1a,
-                                  const void* w1b, const void* b1,
-                                  const void* w2, const void* b2,
-                                  const void* sid, const void* rid,
-                                  const void* dp, const void* seed,
-                                  unsigned thresh, float scale, void* dz1,
-                                  void* dh, void* dw1a, void* dw1b, void* db1,
+// K5. bf16 h goes to the tensor cores (head_bwd_mma.cuh: h rows `pitch`
+// elements apart, W1 as the packed images `wpack` and `wpack_t`, dz1 the
+// scratch image of every 128-edge tile); f32 h to the CUDA-core kernels
+// (w1a / w1b, dz1 a (q, K) scratch).
+extern "C" int sgs_score_head_bwd(const void* h, int h_bf16, int pitch,
+                                  const void* w1a, const void* w1b,
+                                  const void* wpack, const void* wpack_t,
+                                  const void* b1, const void* w2,
+                                  const void* b2, const void* sid,
+                                  const void* rid, const void* dp,
+                                  const void* seed, unsigned thresh,
+                                  float scale, void* dz1, void* dh,
+                                  void* dw1a, void* dw1b, void* db1,
                                   void* dw2, void* db2, long long q,
                                   int n_rows, int feat, int hidden,
                                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (h_bf16)
-    return launch_bwd<__nv_bfloat16>(h, w1a, w1b, b1, w2, b2, sid, rid, dp,
-                                     seed, thresh, scale, dz1, dh, dw1a, dw1b,
-                                     db1, dw2, db2, q, n_rows, feat, hidden,
-                                     s);
+    return sgs::mma::launch_bwd(h, pitch, wpack, wpack_t, b1, w2, b2, sid,
+                                rid, dp, seed, thresh, scale, dz1, dh, dw1a,
+                                dw1b, db1, dw2, db2, q, n_rows, feat, hidden,
+                                s);
   return launch_bwd<float>(h, w1a, w1b, b1, w2, b2, sid, rid, dp, seed,
                            thresh, scale, dz1, dh, dw1a, dw1b, db1, dw2, db2,
                            q, n_rows, feat, hidden, s);

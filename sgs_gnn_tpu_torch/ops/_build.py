@@ -14,7 +14,9 @@ on PyTorch's current stream and returns ``cudaGetLastError()``;
 
 ``LAUNCHES`` counts, per kernel name, the launches the wrappers made. A run
 resets it (``LAUNCHES.clear()``) and reads it afterwards to show that a path
-went through the kernels.
+went through the kernels. ``ROUTES`` counts them per (kernel, route) where a
+wrapper dispatches one kernel name to several routes (K5: "tensor_cores"
+for bf16 h, "cuda_cores" for f32).
 """
 from __future__ import annotations
 
@@ -37,6 +39,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 LAUNCHES: collections.Counter = collections.Counter()
+ROUTES: collections.Counter = collections.Counter()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -49,9 +52,9 @@ _SIGNATURES = {
     "sgs_segment_sum_scalar": [_P, _P, _P, _L, _I, _P],
     "sgs_score_head_fwd": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                            _U, _F, _P, _L, _I, _I, _I, _P],
-    "sgs_score_head_bwd": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _U,
-                           _F, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I,
-                           _P],
+    "sgs_score_head_bwd": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                           _P, _P, _U, _F, _P, _P, _P, _P, _P, _P, _P, _L,
+                           _I, _I, _I, _P],
     "sgs_score_head_tiles": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                              _P, _I, _I, _P, _U, _F, _P, _L, _I, _I, _I,
                              _P],
@@ -127,9 +130,10 @@ def library() -> ctypes.CDLL:
     return lib
 
 
-def call(kernel: str, fn_name: str, device: torch.device, *args) -> None:
+def call(kernel: str, fn_name: str, device: torch.device, *args,
+         route: str = "") -> None:
     """Launch ``fn_name`` on ``device``'s current stream, raise on a CUDA
-    error, and count the launch under ``kernel``."""
+    error, and count the launch under ``kernel`` (and ``route``, if any)."""
     lib = library()
     with torch.cuda.device(device):
         err = getattr(lib, fn_name)(
@@ -138,6 +142,8 @@ def call(kernel: str, fn_name: str, device: torch.device, *args) -> None:
         msg = lib.sgs_error_string(err).decode()
         raise RuntimeError(f"{kernel}: CUDA error {err} ({msg})")
     LAUNCHES[kernel] += 1
+    if route:
+        ROUTES[kernel, route] += 1
 
 
 def check_cuda(name: str, *tensors: torch.Tensor) -> None:

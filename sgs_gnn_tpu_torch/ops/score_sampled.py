@@ -26,8 +26,13 @@ wrapper and in its C entry point: bf16 runs on the tensor cores
 (``csrc/head_mma.cuh``, W1 packed by ``ops/head_mma.py``), f32 on CUDA
 cores (``csrc/score_head.cuh``), since the tensor cores have no full-f32
 product and TF32 would miss the f32 tolerance. Both count their launches
-under the same name, and a kernel that fails raises. K5 runs on CUDA cores
-(far above its bound, see the sources). On the CPU the plain versions
+under the same name, and a kernel that fails raises. K5 dispatches the
+same way (``bwd_operands``): bf16 runs three tensor-core kernels
+(``csrc/head_bwd_mma.cuh``: the dz1 pass, the dh pass and the weight pass,
+with W1 packed twice by ``ops/head_mma.py``, as the forward reads it and
+transposed), f32 the two CUDA-core kernels of ``score_sampled.cu``; both
+count one launch as ``score_head_bwd`` and their route in
+``_build.ROUTES``. On the CPU the plain versions
 run: ``score_head_plain`` and ``score_head_bwd_plain``, which follow the
 kernels' cast points and mask bit for bit, edge chunk by edge chunk to
 bound memory.
@@ -188,6 +193,22 @@ def _head_fwd(h, w1a, w1b, b1, w2, b2, sid, rid, drop, banded=False):
     return out
 
 
+def bwd_operands(h, w1a, w1b, q: int):
+    """K5's operands by h's dtype: (h, h_bf16, pitch, wpack, wpack_t, dz1
+    scratch). bf16 takes the tensor cores: the forward's operands, W1
+    packed transposed for the dh pass and the dz1 image of every edge
+    tile; f32 takes the CUDA cores, which read h, W1a and W1b as they are
+    and write dz1 as a (q, K) array."""
+    hk, bf16, pitch, wpack = kernel_operands(h, w1a, w1b)
+    k = w1a.shape[1]
+    if bf16:
+        return (hk, bf16, pitch, wpack, head_mma.pack_head_weights_t(
+            w1a, w1b), torch.empty(head_mma.dz1_numel(q, k), dtype=h.dtype,
+                                   device=h.device))
+    return hk, bf16, pitch, None, None, torch.empty(
+        (q, k), dtype=h.dtype, device=h.device)
+
+
 def _head_bwd(h, w1a, w1b, b1, w2, b2, sid, rid, dp, drop):
     if h.device.type == "cpu":
         return score_head_bwd_plain(h, w1a, w1b, b1, w2, b2, sid, rid, dp,
@@ -210,15 +231,17 @@ def _head_bwd(h, w1a, w1b, b1, w2, b2, sid, rid, dp, drop):
     db2 = torch.zeros(1, dtype=torch.float32, device=dev)
     if q == 0:
         return dh, dw1a, dw1b, db1, dw2, db2
-    dz1 = torch.empty((q, k), dtype=h.dtype, device=dev)   # kernel scratch
+    hk, bf16, pitch, wpack, wpack_t, dz1 = bwd_operands(h, w1a, w1b, q)
     _build.call("score_head_bwd", "sgs_score_head_bwd", dev,
-                h.data_ptr(), int(h.dtype == torch.bfloat16), w1a.data_ptr(),
-                w1b.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-                sid.data_ptr(), rid.data_ptr(), dp.data_ptr(),
-                drop.seed.data_ptr(), drop.thresh, drop.scale,
-                dz1.data_ptr(), dh.data_ptr(), dw1a.data_ptr(),
-                dw1b.data_ptr(), db1.data_ptr(), dw2.data_ptr(),
-                db2.data_ptr(), q, n, f, k)
+                hk.data_ptr(), bf16, pitch, w1a.data_ptr(), w1b.data_ptr(),
+                None if wpack is None else wpack.data_ptr(),
+                None if wpack_t is None else wpack_t.data_ptr(),
+                b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), sid.data_ptr(),
+                rid.data_ptr(), dp.data_ptr(), drop.seed.data_ptr(),
+                drop.thresh, drop.scale, dz1.data_ptr(), dh.data_ptr(),
+                dw1a.data_ptr(), dw1b.data_ptr(), db1.data_ptr(),
+                dw2.data_ptr(), db2.data_ptr(), q, n, f, k,
+                route="tensor_cores" if bf16 else "cuda_cores")
     return dh, dw1a, dw1b, db1, dw2, db2
 
 

@@ -265,6 +265,70 @@ def test_score_head_bwd_kernel(card, dtype, n, f, k, q, side):
             assert bool((err <= tol).all()), (name, _max_rel(a.float(), b))
 
 
+def test_score_head_bwd_tensor_cores_with_a_hub(card):
+    """bf16 K5 takes the tensor-core route (csrc/head_bwd_mma.cuh) and f32
+    the CUDA-core one, one launch each; at F=K=256 and q=4,133 (a ragged
+    last tile) with 2,500 edges of one sender on the sorted side, whose dh
+    row the dh pass merges across 40 blocks of 64 edges."""
+    import importlib.util
+    from pathlib import Path
+    from sgs_gnn_tpu_torch.ops._build import ROUTES
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    g = torch.Generator(device=card).manual_seed(7)
+    n, f, k, q = 2048, 256, 256, 4133
+    s = _ids(card, g, n, q, -1, n + 2)
+    s[:2500] = 77
+    s = s.sort().values
+    r = _ids(card, g, n, q, -1, n + 2)
+    dp = torch.randn(q, generator=g, device=card)
+    drop = dr.HeadDropout.make(0.3, 11, card)
+
+    def dyadic(shape, num, den):
+        return torch.randint(-num, num + 1, shape, generator=g,
+                             device=card).float() / den
+
+    # dyadic h, W1 and b1: z1's products and sums are exact in f32 in any
+    # order, so the kernel and the plain version agree on relu's side for
+    # every unit (a z1 within rounding of 0 would otherwise move one unit's
+    # term, beyond any bound in the summed |terms| of a node of few edges)
+    fc1, b1 = dyadic((2 * f, k), 16, 256), dyadic((k,), 8, 64)
+    fc2 = torch.randn(k, 1, generator=g, device=card) / k ** 0.5
+    b2 = torch.randn(1, generator=g, device=card) * 0.1
+    h8 = dyadic((n, f), 8, 8)
+    for dtype, route in ((torch.bfloat16, "tensor_cores"),
+                         (torch.float32, "cuda_cores")):
+        h = h8.to(dtype)
+        split = ss.split_head(h, fc1, b1, fc2, b2)
+        before = dict(ROUTES)
+        got = ss._head_bwd(h, *split, s, r, dp, drop)
+        torch.cuda.synchronize()
+        after = dict(ROUTES)
+        assert after.pop(("score_head_bwd", route)) == \
+            before.pop(("score_head_bwd", route), 0) + 1
+        assert after == before
+        want = ss.score_head_bwd_plain(h, *split, s, r, dp, drop)
+        terms = smoke._head_bwd_abs_sums(torch, ss, h, *split, s, r, dp, drop)
+        # dlogit's f32 sums in another order move the value before a bf16
+        # cast (dz1, dh_u / dh_v) across a rounding boundary for rare
+        # terms, one bf16 ulp (<= 2^-7 of the term) apart: per element 2^-7
+        # of the summed |terms| + 1e-6 (most nodes here have 2-4 edges, so
+        # one such term can exceed chip_smoke.py's 2^-9 at q=200k); the
+        # hub's row sums 2,500 edges: 2^-9 of them
+        for name, a, b, c in zip(("dh", "dW1a", "dW1b", "db1", "dw2", "db2"),
+                                 got, want, terms):
+            ratio = (a - b).abs() / (2 ** -7 * c + 1e-6)
+            assert float(ratio.max()) <= 1.0, (
+                dtype, name, float(ratio.max()), int((ratio > 1).sum()),
+                [int(i) for i in torch.nonzero(ratio > 1)[:4].flatten()])
+        hub = (got[0][77] - want[0][77]).abs()
+        assert bool((hub <= 2 ** -9 * terms[0][77] + 1e-6).all()), (
+            dtype, float((hub / terms[0][77]).max()))
+        assert float(got[0][77].abs().sum()) > 0
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n,t,b,f,k", [(50, 16, 32, 24, 40),
                                        (2048, 128, 512, 256, 256),
