@@ -14,9 +14,15 @@ Phases, each printing one JSON line:
               their HGMMA / HMMA instructions counted in ``cuobjdump -sass``
               of the library (a count of 0 fails the run).
   2. kernel   each kernel of the serving and training paths against its
-              plain PyTorch version on the card at the path's shapes, the
-              head kernels (K3 at E=1M without and with dropout 0.3, K3 with
-              a sorted side, K5, K6 with dropout 0.3; kernel and plain
+              plain PyTorch version on the card at the path's shapes: K1
+              and K2 on the ids each path feeds them (``row_cases``: the
+              prior-sampled receivers and senders at q=200k, F=256 and 41,
+              the sorted sample, E=1M receiver-sorted and unsorted senders;
+              each with its route and, on the slab route, its chunks per
+              mode, counted by the kernel and held against the twin of its
+              pick), the head kernels (K3 at E=1M without
+              and with dropout 0.3, K3 with a sorted side, K5, K6 with
+              dropout 0.3; kernel and plain
               version draw the same mask), the sorted scatter K7 (with a
               ragged E, a band too narrow and padding ids) and the fused
               SpMM K8 (F=256 and 41, weighted and not, the receiver-sorted
@@ -32,8 +38,11 @@ Phases, each printing one JSON line:
   4. serve    sparsify + predict (11 draws) at the bench partition's full
               width (N=2048, E=1M, 602 features, nhid 256, 41 classes,
               q=200k, bf16) with random weights from a seed; launch counts of
-              that one run; outputs checked for shape and finiteness and
-              against the same port run on the CPU in f32. One more call of
+              that one run (K1's and K2's also per route, K1's slab chunks
+              per mode as the kernel counted them) and, from a second run
+              with the same draws, K1's and K2's calls per id case;
+              outputs checked for shape and finiteness and against the same
+              port run on the CPU in f32. One more call of
               each under torch.profiler (a ``profile`` line each): device
               time by kernel, device busy time and idle share.
   5. train    the learned training step of bench.py's workload
@@ -42,7 +51,9 @@ Phases, each printing one JSON line:
               hybrid_rescore (with the tile index, 20 timed steps),
               straight_through, the exact hybrid without and with
               hybrid_checkpoint, and two_pass (10 timed steps each): one
-              warm-up step, the launch counts of one step against the counts
+              warm-up step, the launch counts of one step (K1's and K2's
+              also per route and per id case, K1's slab chunks per mode)
+              against the counts
               the path implies, the timed steps (finite losses, parameters
               moved, peak memory) and a ``profile`` line (one step under
               torch.profiler) each; then, after every timed path, for
@@ -90,9 +101,8 @@ HEAD_BWD_KERNELS = ("head_bwd_mma_dz1_kernel", "head_bwd_mma_dh_kernel",
                     "head_bwd_mma_dw_kernel")
 # the device functions each wrapper launches (profiler names hold them)
 KERNEL_FUNCS = {
-    "scatter_add": ("scatter_add_kernel",),
-    "segment_sum_scalar": ("segment_sum_smem_kernel",
-                           "segment_sum_global_kernel"),
+    "scatter_add": ("scatter_slab_kernel", "scatter_direct_kernel"),
+    "segment_sum_scalar": ("segment_sum_kernel",),
     "score_head_sampled": (HEAD_MMA_KERNEL,),
     "score_head_sampled_banded": (HEAD_MMA_KERNEL,),
     "score_head_bwd": HEAD_BWD_KERNELS,
@@ -228,6 +238,56 @@ def no_host_sync(torch):
         yield
     finally:
         torch.cuda.set_sync_debug_mode("default")
+
+
+@contextlib.contextmanager
+def record_row_calls():
+    """Records the ids and widths of every K1 and K2 call made inside (the
+    wrappers' inner functions, wrapped); ``classify_row_calls`` reads them
+    after the run, so nothing inside waits for the card."""
+    from sgs_gnn_tpu_torch.ops import scatter as sc
+    calls = []
+    saved = sc._scatter_add, sc._segment_sum_scalar
+
+    def k1(vals, ids, n):
+        calls.append(("K1", ids, vals.shape[1]))
+        return saved[0](vals, ids, n)
+
+    def k2(w, ids, n):
+        calls.append(("K2", ids, 0))
+        return saved[1](w, ids, n)
+    sc._scatter_add, sc._segment_sum_scalar = k1, k2
+    try:
+        yield calls
+    finally:
+        sc._scatter_add, sc._segment_sum_scalar = saved
+
+
+def classify_row_calls(calls):
+    """{"K1 unsorted E=200000 F=256": calls, ...} of record_row_calls."""
+    tally = {}
+    for kernel, ids, f in calls:
+        e = ids.shape[0]
+        order = ("sorted" if e < 2 or bool((ids[1:] >= ids[:-1]).all())
+                 else "unsorted")
+        key = f"{kernel} {order} E={e}" + (f" F={f}" if f else "")
+        tally[key] = tally.get(key, 0) + 1
+    return dict(sorted(tally.items()))
+
+
+def row_routes(launches):
+    """K1's and K2's launches per route since the counters were cleared;
+    each launch counted on exactly one route."""
+    from sgs_gnn_tpu_torch.ops._build import ROUTES
+    routes = {f"{k} {r}": v for (k, r), v in sorted(ROUTES.items())
+              if k in ("scatter_add", "segment_sum_scalar")}
+    for name in ("scatter_add", "segment_sum_scalar"):
+        on_routes = sum(v for k, v in routes.items()
+                        if k.startswith(name + " "))
+        check(on_routes == launches.get(name, 0),
+              f"{name}: {on_routes} launches on routes, "
+              f"{launches.get(name, 0)} counted")
+    return routes
 
 
 def profile_breakdown(torch, fn, top=10):
@@ -370,77 +430,145 @@ def phase_sass(torch):
             check(not bad, f"no tensor-core instructions in {bad}")
 
 
+def row_cases(torch, g, gen):
+    """The ids K1 and K2 get on the main paths, from the receiver-sorted
+    bench partition ``g`` (degree prior): (K1 cases, K2 cases), each a list
+    of (case, ids[, F]). The sampled ids are drawn as the step draws its
+    prior subgraph (``sample_prior_edges``: top-k order, unsorted), which
+    the scorer's encoder and the random backbone propagate over (K1
+    forward over the receivers, backward over the senders); serve's draws
+    are unsorted the same way. The sorted sample is the learned backbone's
+    of two_pass and the exact hybrid (ascending edge ids)."""
+    from sgs_gnn_tpu_torch.sparsify import sample_prior_edges
+    idx = sample_prior_edges(gen, g.prob, Q, g.edge_mask).long()
+    srt = idx.sort().values
+    k1 = [("sampled receivers q=200k F=256", g.receivers[idx], NHID),
+          ("sampled receivers q=200k F=41", g.receivers[idx], CLASSES),
+          ("sampled senders q=200k F=256", g.senders[idx], NHID),
+          ("sampled senders q=200k F=41", g.senders[idx], CLASSES),
+          ("sorted receivers q=200k F=256", g.receivers[srt], NHID),
+          ("receiver-sorted E=1M F=256", g.receivers, NHID),
+          ("unsorted senders E=1M F=256", g.senders, NHID)]
+    k2 = [("receiver-sorted E=1M", g.receivers),
+          ("sampled receivers q=200k", g.receivers[idx]),
+          ("sorted receivers q=200k", g.receivers[srt])]
+    return k1, k2
+
+
+def time_row_kernels(torch, g, gen, funcs=None):
+    """K1 and K2 on every case of ``row_cases``: error against the plain
+    version, device and event times, plain and library times, bound and
+    route; one ``kernel`` line each. ``funcs`` overrides the profiler's
+    kernel names (tools/time_row_kernels.py times an older checkout)."""
+    from sgs_gnn_tpu_torch.ops import scatter as sc
+    dev = torch.device(DEVICE)
+    k1_cases, k2_cases = row_cases(torch, g, gen)
+    funcs = funcs or KERNEL_FUNCS
+
+    def launch(name, fn):
+        """fn() and the route its one launch of ``name`` took."""
+        from sgs_gnn_tpu_torch.ops._build import ROUTES
+        before = dict(ROUTES)
+        res = fn()
+        new = [r for (k, r), v in ROUTES.items()
+               if k == name and v > before.get((k, r), 0)]
+        return res, (new[0] if new else "unrouted")
+
+    def times(name, fn):
+        dev_ms, _ = device_ms(torch, fn, funcs[name], iters=10)
+        return dict(ms=cuda_ms(torch, fn), device_ms=dev_ms)
+
+    # K1's slab chunks per mode, as the kernel counted them (checkouts
+    # before the count have none)
+    counted = hasattr(sc, "slab_chunk_modes")
+    out = {"scatter_add": [], "segment_sum_scalar": []}
+    for case, ids, f in k1_cases:
+        e = ids.shape[0]
+        vals = torch.randn(e, f, generator=gen, device=dev).to(torch.bfloat16)
+        if counted:
+            sc.reset_slab_chunk_modes()
+        got, route = launch("scatter_add",
+                            lambda: sc.scatter_add(vals, ids, N_NODES))
+        chunks = None
+        if counted and route == "slab":
+            chunks = sc.slab_chunk_modes()
+            rows = sc.slab_chunk_sorted(ids.cpu().numpy(), sc.scatter_plan(
+                N_NODES, f, 2, e, sc._sm_count(ids.device.index)))
+            want = {"sort": int((~rows).sum()), "rows": int(rows.sum())}
+            check(chunks == want, f"scatter_add {case}: the kernel counted "
+                  f"chunks {chunks}, its twin picks {want}")
+        ref = sc.scatter_add_plain(vals, ids, N_NODES)
+        tol = sum_tolerance(sc.scatter_add_plain(vals.abs(), ids, N_NODES))
+        err = (got - ref).abs()
+        check(bool((err <= tol).all()), f"scatter_add {case}: error "
+              f"{float(err.max())} above tolerance")
+        vals_f32, ids64 = vals.float(), ids.long()
+        nbytes = e * f * 2 + 4 * e + 4 * N_NODES * f
+        row = dict(
+            case=case, max_abs_err=float(err.max()),
+            tolerance="1e-5 * sum|vals| per row + 1e-6 (f32 sums reordered "
+                      "by atomics)",
+            route=route, slab_chunks=chunks,
+            **times("scatter_add", lambda: sc.scatter_add(vals, ids,
+                                                          N_NODES)),
+            plain_ms=cuda_ms(torch, lambda: sc.scatter_add_plain(
+                vals, ids, N_NODES), iters=5),
+            library_ms=cuda_ms(torch, lambda: torch.zeros(
+                N_NODES, f, device=dev).index_add_(0, ids64, vals_f32)),
+            library="index_add_ (f32 values, int64 ids)",
+            bound_ms=max(nbytes / HBM_BPS, e * f / F32_FLOPS) * 1e3,
+            bound_by="bytes")
+        row["bound_share"] = row["bound_ms"] / row["device_ms"]
+        out["scatter_add"].append(row)
+        emit("kernel", name="scatter_add", **row)
+    for case, ids in k2_cases:
+        e = ids.shape[0]
+        w = torch.rand(e, generator=gen, device=dev)
+        got, route = launch("segment_sum_scalar",
+                            lambda: sc.segment_sum_scalar(w, ids, N_NODES))
+        ref = sc.segment_sum_scalar_plain(w, ids, N_NODES)
+        err = (got - ref).abs()
+        check(bool((err <= sum_tolerance(ref)).all()),
+              f"segment_sum_scalar {case}: error {float(err.max())}")
+        ids64 = ids.long()
+        row = dict(
+            case=case, max_abs_err=float(err.max()),
+            tolerance="1e-5 * sum|w| per node + 1e-6 (f32 sums reordered "
+                      "by atomics)",
+            route=route,
+            **times("segment_sum_scalar",
+                    lambda: sc.segment_sum_scalar(w, ids, N_NODES)),
+            plain_ms=cuda_ms(torch, lambda: sc.segment_sum_scalar_plain(
+                w, ids, N_NODES), iters=5),
+            library_ms=cuda_ms(torch, lambda: torch.bincount(
+                ids64, weights=w, minlength=N_NODES)),
+            library="bincount (int64 ids, f32 weights)",
+            bound_ms=max((8 * e + 4 * N_NODES) / HBM_BPS,
+                         e / F32_FLOPS) * 1e3,
+            bound_by="bytes")
+        row["bound_share"] = row["bound_ms"] / row["device_ms"]
+        out["segment_sum_scalar"].append(row)
+        emit("kernel", name="segment_sum_scalar", **row)
+    return out
+
+
 def phase_kernels(torch, g):
     """Each kernel against its plain version at the serving path's shapes;
     returns {kernel: {main-case numbers, cases}}."""
-    from sgs_gnn_tpu_torch.ops import scatter as sc
     from sgs_gnn_tpu_torch.ops import score_sampled as ss
     from sgs_gnn_tpu_torch.ops.dropout import HeadDropout
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(11)
     receivers, senders = g.receivers, g.senders
-    sub = torch.randperm(N_EDGES, generator=gen, device=dev)[:Q]
     results = {}
 
-    # K1 scatter_add: scorer (E=1M receiver-sorted, F=256), backbone per
-    # draw (q=200k sampled receivers, F=256 and F=41)
-    cases = []
-    for case, ids, f in (("scorer E=1M F=256", receivers, NHID),
-                         ("backbone q=200k F=256", receivers[sub], NHID),
-                         ("backbone q=200k F=41", receivers[sub], CLASSES)):
-        e = ids.shape[0]
-        vals = torch.randn(e, f, generator=gen, device=dev).to(torch.bfloat16)
-        out = sc.scatter_add(vals, ids, N_NODES)
-        ref = sc.scatter_add_plain(vals, ids, N_NODES)
-        tol = sum_tolerance(sc.scatter_add_plain(vals.abs(), ids, N_NODES))
-        err = (out - ref).abs()
-        check(bool((err <= tol).all()), f"scatter_add {case}: error "
-              f"{float(err.max())} above tolerance")
-        vals_f32, ids64 = vals.float(), ids.long()
-        nbytes = e * f * 2 + 4 * e + 4 * N_NODES * f
-        cases.append(dict(
-            case=case, max_abs_err=float(err.max()),
-            tolerance="1e-5 * sum|vals| per row + 1e-6 (f32 sums reordered "
-                      "by atomics)",
-            **timed(torch, "scatter_add",
-                    lambda: sc.scatter_add(vals, ids, N_NODES)),
-            plain_ms=cuda_ms(torch, lambda: sc.scatter_add_plain(
-                vals, ids, N_NODES)),
-            library_ms=cuda_ms(torch, lambda: torch.zeros(
-                N_NODES, f, device=dev).index_add_(0, ids64, vals_f32)),
-            bound_ms=max(nbytes / HBM_BPS, e * f / F32_FLOPS) * 1e3,
-            bound_by="bytes"))
-        emit("kernel", name="scatter_add", **cases[-1])
-    results["scatter_add"] = dict(cases[0], cases=cases)
-
-    # K2 segment_sum_scalar: weighted degrees over E=1M sorted receivers
-    # (scorer) and q=200k sampled receivers (backbone)
-    cases = []
-    for case, ids in (("scorer E=1M", receivers),
-                      ("backbone q=200k", receivers[sub])):
-        e = ids.shape[0]
-        w = torch.rand(e, generator=gen, device=dev)
-        out = sc.segment_sum_scalar(w, ids, N_NODES)
-        ref = sc.segment_sum_scalar_plain(w, ids, N_NODES)
-        err = (out - ref).abs()
-        check(bool((err <= sum_tolerance(ref)).all()),
-              f"segment_sum_scalar {case}: error {float(err.max())}")
-        ids64 = ids.long()
-        cases.append(dict(
-            case=case, max_abs_err=float(err.max()),
-            tolerance="1e-5 * sum|w| per node + 1e-6 (f32 sums reordered "
-                      "by atomics)",
-            **timed(torch, "segment_sum_scalar",
-                    lambda: sc.segment_sum_scalar(w, ids, N_NODES)),
-            plain_ms=cuda_ms(torch, lambda: sc.segment_sum_scalar_plain(
-                w, ids, N_NODES)),
-            library_ms=cuda_ms(torch, lambda: torch.bincount(
-                ids64, weights=w, minlength=N_NODES)),
-            bound_ms=max((8 * e + 4 * N_NODES) / HBM_BPS,
-                         e / F32_FLOPS) * 1e3,
-            bound_by="bytes"))
-        emit("kernel", name="segment_sum_scalar", **cases[-1])
-    results["segment_sum_scalar"] = dict(cases[0], cases=cases)
+    # K1 and K2 on the ids each path feeds them; the kernels line takes the
+    # case of K1's and K2's most launches: the sampled receivers
+    rows = time_row_kernels(torch, g, gen)
+    for name, cases in rows.items():
+        main = next(c for c in cases if c["case"].startswith(
+            "sampled receivers q=200k"))
+        results[name] = dict(main, cases=cases)
 
     # K3 score_head_sampled: all E=1M edges of the partition, F=K=256 bf16
     h = torch.randn(N_NODES, NHID, generator=gen, device=dev).relu().to(
@@ -817,7 +945,8 @@ def phase_serve(torch, arrays):
     from sgs_gnn_tpu_torch import (Config, Graph, get_model, make_predictor,
                                    make_sparsifier)
     from sgs_gnn_tpu_torch.data import degree_prior
-    from sgs_gnn_tpu_torch.ops._build import LAUNCHES
+    from sgs_gnn_tpu_torch.ops import scatter as sc
+    from sgs_gnn_tpu_torch.ops._build import LAUNCHES, ROUTES
     x, edge_index, y, train = arrays
     prob = degree_prior(edge_index[0], edge_index[1], N_NODES)
     build_kw = dict(prob=prob, num_classes=CLASSES, sort_by_receiver=True)
@@ -835,6 +964,8 @@ def phase_serve(torch, arrays):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     LAUNCHES.clear()
+    ROUTES.clear()
+    sc.reset_slab_chunk_modes()
     t0 = time.perf_counter()
     with no_host_sync(torch):
         sp = sparsify(g, gen)
@@ -845,7 +976,18 @@ def phase_serve(torch, arrays):
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     launches = dict(LAUNCHES)
+    routes = row_routes(launches)
     peak = torch.cuda.max_memory_allocated()
+    slab_chunks = sc.slab_chunk_modes()
+    # the id case of each K1 and K2 call, from a second run with the same
+    # draws: the recorder holds every call's ids, so it stays out of the
+    # measured run's memory and times
+    again = torch.Generator(device=DEVICE).manual_seed(1)
+    with record_row_calls() as calls:
+        sparsify(g, again)
+        predict(g, again)
+    row_calls = classify_row_calls(calls)
+    del calls
 
     expect = {"scatter_add": 2 + 2 + 2 * DRAWS,
               "segment_sum_scalar": 2 + 2 + 2 * DRAWS,
@@ -913,7 +1055,8 @@ def phase_serve(torch, arrays):
          first_sparsify_ms=(t1 - t0) * 1e3, first_predict_ms=(t2 - t1) * 1e3,
          sparsify_ms=sparsify_ms, edges_per_s=N_EDGES / sparsify_ms * 1e3,
          predict_ms=predict_ms, max_memory_allocated=peak, launches=launches,
-         cpu_reference_s=cpu_s, cpu_subsample=CPU_SUBSAMPLE,
+         row_routes=routes, row_calls=row_calls,
+         k1_slab_chunks=slab_chunks, cpu_reference_s=cpu_s, cpu_subsample=CPU_SUBSAMPLE,
          probs_max_abs_err=float(p_err.max()),
          probs_mean_abs_err=float(p_err.mean()),
          logits_max_abs_err=float(l_err.max()), logits_max_abs=l_scale)
@@ -1092,7 +1235,8 @@ def _train_path(torch, g, name, cfg_kw, steps, expect):
     launches."""
     from sgs_gnn_tpu_torch import (Config, DualOptimizer, get_model,
                                    make_train_step)
-    from sgs_gnn_tpu_torch.ops._build import LAUNCHES
+    from sgs_gnn_tpu_torch.ops import scatter as sc
+    from sgs_gnn_tpu_torch.ops._build import LAUNCHES, ROUTES
     cfg = Config(**cfg_kw)
     check(cfg.drop_rate == DROP, f"drop_rate {cfg.drop_rate}")
     model = get_model("GCN", FEAT, NHID, CLASSES, cfg.drop_rate, "GCN",
@@ -1114,10 +1258,16 @@ def _train_path(torch, g, name, cfg_kw, steps, expect):
     # it; any wait of the host for the card inside the step raises
     torch.cuda.synchronize()
     LAUNCHES.clear()
-    with no_host_sync(torch):
+    ROUTES.clear()
+    sc.reset_slab_chunk_modes()
+    with record_row_calls() as calls, no_host_sync(torch):
         m = step(g, 1, gen)
     torch.cuda.synchronize()
     launches = dict(LAUNCHES)
+    routes = row_routes(launches)
+    slab_chunks = sc.slab_chunk_modes()
+    row_calls = classify_row_calls(calls)
+    del calls
     check(launches == expect,
           f"{name}: launch counts {launches}, expected {expect}")
 
@@ -1148,7 +1298,9 @@ def _train_path(torch, g, name, cfg_kw, steps, expect):
          train_edges_per_s=N_EDGES / step_ms * 1e3,
          max_memory_allocated=peak, memory_allocated_before=base,
          losses=losses.tolist(), gates=gates.tolist(),
-         launches_per_step=launches, **extra)
+         launches_per_step=launches, row_routes_per_step=routes,
+         row_calls_per_step=row_calls,
+         k1_slab_chunks_per_step=slab_chunks, **extra)
     emit("profile", call=f"train_step {name}", **profile_breakdown(
         torch, lambda: step(g, steps + 2, gen)))
     return launches
@@ -1220,6 +1372,7 @@ def main():
         return 1
     # the port itself: without it (this script alone) fail before printing
     from sgs_gnn_tpu_torch import Graph
+    from sgs_gnn_tpu_torch.data import degree_prior
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase_device(torch)
@@ -1228,6 +1381,7 @@ def main():
     arrays = build_partition()
     x, edge_index, y, train = arrays
     g = Graph.build(x, edge_index, y, train, ~train, None, device=DEVICE,
+                    prob=degree_prior(edge_index[0], edge_index[1], N_NODES),
                     sort_by_receiver=True, tile_index=True)
     kernels = phase_kernels(torch, g)
     phase_head_kernels(torch, g, kernels)
@@ -1253,6 +1407,7 @@ def main():
             device_ms=k["device_ms"],
             plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
             bound_by=k["bound_by"], bound_share=k["bound_ms"] / k["ms"],
+            device_bound_share=k["bound_ms"] / k["device_ms"],
             library_ms=k["library_ms"], matched=True, case=k["case"]))
     print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {

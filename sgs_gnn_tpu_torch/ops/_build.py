@@ -15,8 +15,11 @@ on PyTorch's current stream and returns ``cudaGetLastError()``;
 ``LAUNCHES`` counts, per kernel name, the launches the wrappers made. A run
 resets it (``LAUNCHES.clear()``) and reads it afterwards to show that a path
 went through the kernels. ``ROUTES`` counts them per (kernel, route) where a
-wrapper dispatches one kernel name to several routes (K5: "tensor_cores"
-for bf16 h, "cuda_cores" for f32).
+wrapper dispatches one kernel name to several routes (K1: "slab" or
+"direct", K2: "shared" or "global", by ``ops/scatter.py``'s plans; K5:
+"tensor_cores" for bf16 h, "cuda_cores" for f32). What a kernel picks from
+the data, not the host, it counts on the card itself (K1's slab chunks per
+mode: ``ops/scatter.py`` ``slab_chunk_modes``).
 """
 from __future__ import annotations
 
@@ -48,8 +51,9 @@ _U = ctypes.c_uint
 _F = ctypes.c_float
 # C signatures: name -> argtypes (every function returns cudaError_t as int)
 _SIGNATURES = {
-    "sgs_scatter_add": [_P, _I, _P, _P, _L, _I, _I, _P],
-    "sgs_segment_sum_scalar": [_P, _P, _P, _L, _I, _P],
+    "sgs_scatter_add": [_P, _I, _P, _P, _L, _I, _I, _I, _I, _L, _I, _I,
+                        _P, _P],
+    "sgs_segment_sum_scalar": [_P, _P, _P, _L, _I, _L, _P],
     "sgs_score_head_fwd": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                            _U, _F, _P, _L, _I, _I, _I, _P],
     "sgs_score_head_bwd": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,

@@ -7,20 +7,31 @@ launches the kernel or raises.
 ``scatter_add(vals, ids, n)``: ``out[n] = sum_{ids[i]=n} vals[i]``, (E, F)
 bf16 or f32 -> (N, F) f32. Replaces ``scatter_pallas.py:_scatter_kernel``
 (behind ``scatter_add_pallas``), which turned the scatter into one-hot
-matmuls because the TPU has no fast dynamic scatter. On the H100 the
-kernel (``csrc/scatter.cu``) scatters directly with f32 atomics. It is
-bound by bytes (E*F*itemsize + 4E + 4NF: ~0.16 ms for E=1M, F=256 bf16 at
-3.35 TB/s); the risk is atomic contention on a few thousand rows, which the
-kernel cuts by merging runs of equal ids (receiver-sorted edge lists) in
-registers before one atomic per run.
+matmuls because the TPU has no fast dynamic scatter. It is bound by bytes
+(E*F*itemsize + 4E + 4NF: ~0.16 ms for E=1M, F=256 bf16 at 3.35 TB/s); what
+costs the time beyond that is f32 atomics into a small output, and most ids
+the main path feeds are unsorted (sampled edges). The kernel
+(``csrc/scatter.cu``) has two routes, picked by :func:`scatter_plan` from
+N, F and the value type: "slab" accumulates a W-column slab of all N rows
+in shared memory per block, over a chunk of edges counting-sorted by id in
+shared memory (shared-memory f32 atomics are CAS loops on sm_90; sorted,
+a run inside a walker's range is added without them), and flushes it once
+with 16-byte atomics ("sort" mode); a chunk whose ids look sorted adds runs
+of whole rows with float4 atomics instead ("rows" mode). The mode is picked
+per chunk from the ids on the card (:func:`slab_chunk_sorted` is the
+test's twin) and counted there (:func:`slab_chunk_modes`). "direct" (N
+too large for a slab) adds runs of equal ids straight into the output with
+float4 atomics.
 
 ``segment_sum_scalar(w, ids, n)``: ``deg[n] = sum_{ids[i]=n} w[i]``, (E,)
 f32 -> (N,) f32. Replaces ``scatter_pallas.py:_scalar_kernel`` (behind
 ``_segment_sum_scalar_pallas``), which rounds w to bf16; the port keeps
 f32, as the JAX package's own CPU path does. Bound by bytes (8E: ~2.4 us
-at E=1M). The kernel (``csrc/segment_sum.cu``) builds a per-block
-histogram in shared memory and flushes it with one global atomic per
-touched node; for N too large for shared memory it uses global atomics.
+at E=1M). The kernel (``csrc/segment_sum.cu``) gives each block a
+contiguous range of items (:func:`segment_plan`), sums runs of equal ids
+inside a warp with a segmented shuffle scan, and adds each run once: into
+the block's shared histogram, flushed over the id range the block touched
+("shared" route), or, for N above the histogram, into the output ("global").
 
 ``scatter_add_sorted(vals, ids_sorted, n, band)``: ``scatter_add`` over
 non-decreasing ids with the TPU kernel's band rule. Replaces
@@ -45,10 +56,185 @@ row index on either device: it is no TPU kernel's counterpart.
 """
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
 from . import _build
+
+# csrc/scatter.cu and csrc/segment_sum.cu geometry, and Hopper's limits
+SMEM_LIMIT = 232_448       # opt-in shared memory of one block (227 KB)
+SMEM_PER_SM = 233_472      # shared memory of one SM (228 KB)
+H100_SMS = 132
+SLAB_THREADS = 1024        # scatter.cu kSlabThreads
+SLAB_MAX_COLS = 32         # a slab's columns are lanes of one warp
+SORT_MAX_ITEMS = 1 << 15   # scatter.cu kMaxSubItems: offset bits of a key
+SORT_MIN_ITEMS = 4096      # a slab route's sort pass, at least
+SLAB_MAX_SEGMENTS = 1 << 16   # ids of a sort key (16 bits)
+DIRECT_TILE = 256          # rows.cuh kRowTile: columns of a direct block
+DIRECT_WARPS = 8           # scatter.cu kDirectWarps
+DIRECT_EDGES_PER_WARP = 32
+MAX_GRID_Y = 65_535
+SEGMENT_SMEM_NODES = 12_288   # segment_sum.cu kSmemNodes
+SEGMENT_STEP = 2048        # items of one unrolled block step (512 x 4)
+SEGMENT_MIN_ITEMS = 2048   # items of one block at least
+
+
+class ScatterPlan(NamedTuple):
+    """How ``csrc/scatter.cu`` cuts one call: block (x, y) covers columns
+    [x * col_tile, (x + 1) * col_tile) and items [y * chunk_items, (y + 1)
+    * chunk_items), clipped to (F, E)."""
+    route: str           # "slab" or "direct"
+    col_tile: int        # slab columns W, or 256 (direct)
+    col_tiles: int       # gridDim.x
+    chunk_items: int     # edges of one block row
+    chunks: int          # gridDim.y
+    sub_items: int       # edges of one counting sort (slab), 0 (direct)
+    smem_bytes: int      # slab_smem (slab), 0 (direct)
+
+
+def slab_stride(n: int) -> int:
+    """Column stride of a K1 slab: the smallest S >= n with S % 8 == 2
+    (csrc/scatter.cu slab_stride: the lanes on one row hit distinct
+    shared-memory banks)."""
+    return n + (10 - n % 8) % 8
+
+
+def slab_smem(n: int, w: int, sub_items: int) -> int:
+    """Shared memory of a K1 slab block (csrc/scatter.cu slab_smem): the
+    N x W slab, the sort's N-bin histogram, its sub_items keys and 32 ints
+    of scan scratch."""
+    return 4 * (w * slab_stride(n) + n + sub_items + 32)
+
+
+def _pow2_at_least(x: int) -> int:
+    return 1 << max(int(x) - 1, 0).bit_length()
+
+
+def scatter_plan(n: int, f: int, itemsize: int, e: int,
+                 sms: int = H100_SMS) -> ScatterPlan:
+    """K1's route and grid for N segments, F columns of ``itemsize``-byte
+    values and E items on a card of ``sms`` SMs.
+
+    The route is a function of (N, F, itemsize): "slab" where an N x W f32
+    slab and a sort pass of 4096 edges fit in one block's shared memory with
+    W (a power of two <= 32, no wider than F needs) at least one 32-byte
+    sector of a value row (16 bf16 or 8 f32 columns, or all of F); else
+    "direct". Slab blocks hold one SM each at N=2048, so the chunks fill one
+    wave of the card's SMs, no shorter than max(2N, 2048) edges each, so that
+    the flush (N x W adds per block) stays below the chunk's own adds; each
+    chunk is sorted in as few equal passes as the shared memory left holds
+    (at most 2^15 edges)."""
+    cols = min(_pow2_at_least(f), SLAB_MAX_COLS)
+    w = SLAB_MAX_COLS
+    while w > 1 and slab_smem(n, w, SORT_MIN_ITEMS) > SMEM_LIMIT:
+        w //= 2
+    w = min(w, cols)
+    need = min(32 // itemsize, cols)
+    if (slab_smem(n, w, SORT_MIN_ITEMS) <= SMEM_LIMIT and w >= need
+            and n < SLAB_MAX_SEGMENTS):
+        col_tiles = -(-f // w)
+        per_sm = max(1, min(SMEM_PER_SM // (slab_smem(n, w, SORT_MIN_ITEMS)
+                                            + 1024), 2048 // SLAB_THREADS))
+        chunks = max(1, min(sms * per_sm // col_tiles,
+                            -(-e // max(2 * n, 2048))))
+        chunk = -(-e // chunks)
+        # the sort passes of a chunk: as few as the shared memory left to
+        # per_sm blocks allows, of equal size
+        room = min(SORT_MAX_ITEMS, (min(SMEM_LIMIT, SMEM_PER_SM // per_sm
+                                        - 1024) - slab_smem(n, w, 0)) // 4)
+        sub = -(-chunk // -(-chunk // room))
+        return ScatterPlan("slab", w, col_tiles, chunk, -(-e // chunk), sub,
+                           slab_smem(n, w, sub))
+    per_warp = DIRECT_EDGES_PER_WARP * max(
+        1, -(-e // (MAX_GRID_Y * DIRECT_WARPS * DIRECT_EDGES_PER_WARP)))
+    chunk = DIRECT_WARPS * per_warp
+    return ScatterPlan("direct", DIRECT_TILE, -(-f // DIRECT_TILE), chunk,
+                       -(-e // chunk), 0, 0)
+
+
+CHUNK_MODES = ("sort", "rows")   # scatter.cu: chunk_modes[0], [1]
+
+
+def slab_chunk_sorted(ids, plan: ScatterPlan) -> np.ndarray:
+    """(chunks,) bool: the chunks of a slab plan that take "rows" mode, as
+    csrc/scatter.cu chunk_looks_sorted picks them: each of the block's
+    1024 threads compares the item at e0 + t * step (step = max(1, chunk
+    length // 1024)) with the next item and with the next sample; a chunk
+    with no descent among them looks sorted."""
+    ids = np.asarray(ids)
+    e = ids.shape[0]
+    out = np.zeros(plan.chunks, bool)
+    for y in range(plan.chunks):
+        e0 = y * plan.chunk_items
+        e1 = min(e0 + plan.chunk_items, e)
+        step = max(1, (e1 - e0) // SLAB_THREADS)
+        p = e0 + np.arange(SLAB_THREADS, dtype=np.int64) * step
+        p = p[p + 1 < e1]
+        a = ids[p]
+        far = p + step < e1
+        descent = (a > ids[p + 1]) | (far & (a > ids[np.where(far, p + step,
+                                                                p)]))
+        out[y] = not descent.any()
+    return out
+
+
+# {card index: (2,) int32 on the card}: K1's slab chunks per mode
+_chunk_modes: dict = {}
+
+
+def _chunk_modes_buffer(device):
+    buf = _chunk_modes.get(device.index)
+    if buf is None:
+        buf = _chunk_modes[device.index] = torch.zeros(
+            len(CHUNK_MODES), dtype=torch.int32, device=device)
+    return buf
+
+
+def reset_slab_chunk_modes() -> None:
+    """Sets the card's counts of K1's slab chunks per mode to 0 (a device
+    memset; nothing waits)."""
+    for buf in _chunk_modes.values():
+        buf.zero_()
+
+
+def slab_chunk_modes() -> dict:
+    """{"sort": chunks, "rows": chunks}: the chunks of K1's slab route per
+    mode since the last reset, summed over the cards, as the kernel counted
+    them. Reads the card (the host waits for it)."""
+    counts = np.zeros(len(CHUNK_MODES), np.int64)
+    for buf in _chunk_modes.values():
+        counts += np.asarray(buf.tolist(), np.int64)
+    return dict(zip(CHUNK_MODES, counts.tolist()))
+
+
+class SegmentPlan(NamedTuple):
+    """How ``csrc/segment_sum.cu`` cuts one call: block b sums items [b *
+    items_per_block, (b + 1) * items_per_block)."""
+    route: str           # "shared" or "global"
+    items_per_block: int
+    blocks: int
+    smem_bytes: int      # N * 4 (shared), 0 (global)
+
+
+def segment_plan(n: int, e: int, sms: int = H100_SMS) -> SegmentPlan:
+    """K2's route (a function of N: the shared histogram holds up to
+    12,288 nodes) and its contiguous item ranges: about two blocks per SM,
+    at least 2048 items each, in whole unrolled steps (at q=200k, 98 blocks
+    of 2048 took 0.0051 ms on an H100, 49 of 4096 0.0074:
+    tools/tune_row_kernels.py)."""
+    items = max(SEGMENT_MIN_ITEMS, -(-e // (2 * sms)))
+    items = -(-items // SEGMENT_STEP) * SEGMENT_STEP
+    if n <= SEGMENT_SMEM_NODES:
+        return SegmentPlan("shared", items, -(-e // items), 4 * n)
+    return SegmentPlan("global", items, -(-e // items), 0)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _round_up(x, m):
@@ -145,9 +331,14 @@ def _scatter_add(vals, ids, num_segments: int):
                       device=vals.device)
     if e == 0 or f == 0 or num_segments == 0:
         return out
+    plan = scatter_plan(num_segments, f, vals.element_size(), e,
+                        _sm_count(vals.device.index))
     _build.call("scatter_add", "sgs_scatter_add", vals.device,
                 vals.data_ptr(), int(vals.dtype == torch.bfloat16),
-                ids.data_ptr(), out.data_ptr(), e, f, num_segments)
+                ids.data_ptr(), out.data_ptr(), e, f, num_segments,
+                int(plan.route == "direct"), plan.col_tile,
+                plan.chunk_items, plan.sub_items, plan.smem_bytes,
+                _chunk_modes_buffer(vals.device).data_ptr(), route=plan.route)
     return out
 
 
@@ -247,7 +438,8 @@ def _segment_sum_scalar(w, ids, num_segments: int):
     out = torch.zeros(num_segments, dtype=torch.float32, device=w.device)
     if w.shape[0] == 0 or num_segments == 0:
         return out
+    plan = segment_plan(num_segments, w.shape[0], _sm_count(w.device.index))
     _build.call("segment_sum_scalar", "sgs_segment_sum_scalar", w.device,
                 w.data_ptr(), ids.data_ptr(), out.data_ptr(), w.shape[0],
-                num_segments)
+                num_segments, plan.items_per_block, route=plan.route)
     return out

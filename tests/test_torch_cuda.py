@@ -4,8 +4,9 @@ Marked ``cuda``; each test skips without a card. These cover the ragged
 and odd shapes that the full-width run in ``chip_smoke.py`` does not: F not
 a multiple of the column tile, K not a multiple of the hidden tile, q not a
 multiple of the edge tile, ids out of range, N above the shared-memory
-histogram, N not a multiple of the tile rows, padding slots; for the
-sorted scatter a ragged E, padding ids and a band too narrow (kernel and
+histogram, each route of the row scatter (K1) and the degree sum (K2) with
+hub-skewed ids and long runs, N not a multiple of the tile rows, padding
+slots; for the sorted scatter a ragged E, padding ids and a band too narrow (kernel and
 plain version drop the same items); for the fused SpMM sorted and unsorted
 receivers and its backward. The head
 kernels run with dropout: kernel and plain version draw the same mask from
@@ -54,6 +55,41 @@ def _sum_tol(abs_sum):
     return 1e-5 * abs_sum + 1e-6
 
 
+def _one_launch(name, route, run):
+    """Runs ``run()`` and checks that it launched ``name`` once, on
+    ``route``, and nothing else."""
+    from sgs_gnn_tpu_torch.ops._build import ROUTES
+    before_l, before_r = dict(LAUNCHES), dict(ROUTES)
+    out = run()
+    torch.cuda.synchronize()
+    after_l, after_r = dict(LAUNCHES), dict(ROUTES)
+    assert after_l.pop(name) == before_l.pop(name, 0) + 1
+    assert after_r.pop((name, route)) == before_r.pop((name, route), 0) + 1
+    assert (after_l, after_r) == (before_l, before_r)
+    return out
+
+
+def _check_scatter(vals, ids, n):
+    """One K1 call against the plain version: its route, and on the slab
+    route the chunks per mode the kernel counted against the twin of its
+    pick (``slab_chunk_sorted``)."""
+    plan = sc.scatter_plan(n, vals.shape[1], vals.element_size(),
+                           vals.shape[0], sc._sm_count(vals.device.index))
+    sc.reset_slab_chunk_modes()
+    out = _one_launch("scatter_add", plan.route,
+                      lambda: sc.scatter_add(vals, ids, n))
+    rows = (sc.slab_chunk_sorted(ids.cpu().numpy(), plan)
+            if plan.route == "slab" else [])
+    assert sc.slab_chunk_modes() == {"sort": len(rows) - int(sum(rows)),
+                                     "rows": int(sum(rows))}
+    ref = sc.scatter_add_plain(vals, ids, n)
+    tol = _sum_tol(sc.scatter_add_plain(vals.abs(), ids, n))
+    assert out.dtype == torch.float32 and out.shape == (n, vals.shape[1])
+    assert bool(((out - ref).abs() <= tol).all()), float(
+        ((out - ref).abs() - tol).max())
+    return plan
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n,e,f,order", [(37, 1001, 41, "random"),
                                          (2048, 20000, 256, "sorted"),
@@ -66,14 +102,93 @@ def test_scatter_add_kernel(card, dtype, n, e, f, order):
                         dtype=torch.int32)
     if order == "sorted":
         ids = ids.sort().values
-    before = LAUNCHES["scatter_add"]
-    out = sc.scatter_add(vals, ids, n)
-    torch.cuda.synchronize()
-    assert LAUNCHES["scatter_add"] == before + 1
-    ref = sc.scatter_add_plain(vals, ids, n)
-    tol = _sum_tol(sc.scatter_add_plain(vals.abs(), ids, n))
-    assert out.dtype == torch.float32 and out.shape == (n, f)
-    assert bool(((out - ref).abs() <= tol).all())
+    assert _check_scatter(vals, ids, n).route == "slab"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,e,f,ids_kind,route", [
+    # the backbone's q=200k shapes: hub-skewed ids, E not a multiple of
+    # the chunk, F=41 (82-byte bf16 rows, three slabs of 16 columns)
+    (2048, 200_003, 256, "hub", "slab"),
+    (2048, 100_001, 41, "hub", "slab"),
+    (2048, 65_537, 256, "sorted", "slab"),
+    # sorted chunks ("rows" mode) and unsorted ones ("sort") in one call
+    (2048, 200_003, 256, "half_sorted", "slab"),
+    # N above a slab of one sector: the direct route, 16-byte and element
+    # layouts
+    (5000, 50_001, 256, "hub", "direct"),
+    (5000, 20_011, 41, "hub", "direct"),
+    (100_000, 30_000, 64, "random", "direct")])
+def test_scatter_add_routes(card, dtype, n, e, f, ids_kind, route):
+    """Each route of K1, with ids in [-2, N+2): out-of-range ids dropped;
+    "hub": half the items on one id, the rest uniform; "half_sorted": the
+    first half sorted, the rest uniform."""
+    if dtype == torch.float32 and n == 5000:
+        route = "slab"           # 8 f32 columns (one sector) fit at N=5000
+    g = torch.Generator(device=card).manual_seed(3)
+    vals = torch.randn(e, f, generator=g, device=card).to(dtype)
+    ids = torch.randint(-2, n + 2, (e,), generator=g, device=card,
+                        dtype=torch.int32)
+    if ids_kind == "hub":
+        ids[torch.randperm(e, generator=g, device=card)[:e // 2]] = 7
+    elif ids_kind == "sorted":
+        ids = ids.sort().values
+    elif ids_kind == "half_sorted":
+        ids[:e // 2] = ids[:e // 2].sort().values
+    plan = _check_scatter(vals, ids, n)
+    assert plan.route == route
+    if ids_kind == "half_sorted":
+        rows = sc.slab_chunk_sorted(ids.cpu().numpy(), plan)
+        assert rows.any() and not rows.all()
+    assert e % plan.chunk_items != 0
+    # a view 2 bytes off the 16-byte layout
+    shifted = vals.reshape(-1)[1:1 + (e - 1) * f].reshape(e - 1, f)
+    _check_scatter(shifted, ids[:-1], n)
+
+
+def _padding_ids(kind, n, e, g, card):
+    """Ids where whole blocks hold none in range: "all_out" (-1 or N
+    only), "padding_block" (uniform, with 10,000 consecutive N in the
+    middle: at least one whole K1 chunk and four whole K2 blocks)."""
+    if kind == "all_out":
+        ids = torch.randint(0, 2, (e,), generator=g, device=card,
+                            dtype=torch.int32) * (n + 1) - 1
+    else:
+        ids = torch.randint(0, n, (e,), generator=g, device=card,
+                            dtype=torch.int32)
+        ids[e // 2 - 5000:e // 2 + 5000] = n
+    return ids
+
+
+@pytest.mark.parametrize("n,f,route", [(2048, 256, "slab"),
+                                       (2048, 41, "slab"),
+                                       (5000, 256, "direct")])
+@pytest.mark.parametrize("ids_kind", ["all_out", "padding_block"])
+def test_scatter_add_padding_ids(card, n, f, route, ids_kind):
+    e = 60_001
+    g = torch.Generator(device=card).manual_seed(4)
+    vals = torch.randn(e, f, generator=g, device=card).to(torch.bfloat16)
+    ids = _padding_ids(ids_kind, n, e, g, card)
+    assert _check_scatter(vals, ids, n).route == route
+
+
+@pytest.mark.parametrize("n", [2048, 20_000])
+@pytest.mark.parametrize("ids_kind", ["all_out", "padding_block"])
+def test_segment_sum_scalar_padding_ids(card, n, ids_kind):
+    """K2 on both routes where whole blocks touch no node: a block of the
+    shared route then has nothing to flush."""
+    e = 100_003
+    g = torch.Generator(device=card).manual_seed(5)
+    w = torch.rand(e, generator=g, device=card)
+    ids = _padding_ids(ids_kind, n, e, g, card)
+    route = "shared" if n <= 12288 else "global"
+    assert sc.segment_plan(n, e).items_per_block <= 5000
+    out = _one_launch("segment_sum_scalar", route,
+                      lambda: sc.segment_sum_scalar(w, ids, n))
+    ref = sc.segment_sum_scalar_plain(w, ids, n)
+    assert bool(((out - ref).abs() <= _sum_tol(ref)).all())
+    if ids_kind == "all_out":
+        assert not bool(out.any())
 
 
 @pytest.mark.parametrize("n", [1, 2048, 12288, 12289, 100_000])
@@ -83,13 +198,43 @@ def test_segment_sum_scalar_kernel(card, n):
     w = torch.rand(e, generator=g, device=card)
     ids = torch.randint(-1, n + 1, (e,), generator=g, device=card,
                         dtype=torch.int32)
-    before = LAUNCHES["segment_sum_scalar"]
-    out = sc.segment_sum_scalar(w, ids, n)
-    torch.cuda.synchronize()
-    assert LAUNCHES["segment_sum_scalar"] == before + 1
+    route = sc.segment_plan(n, e).route
+    assert route == ("shared" if n <= 12288 else "global")
+    out = _one_launch("segment_sum_scalar", route,
+                      lambda: sc.segment_sum_scalar(w, ids, n))
     ref = sc.segment_sum_scalar_plain(w, ids, n)
     assert bool(((out - ref).abs() <= _sum_tol(ref)).all())
     ones = torch.ones_like(w)                  # counts are exact in f32
+    assert torch.equal(sc.segment_sum_scalar(ones, ids, n),
+                       sc.segment_sum_scalar_plain(ones, ids, n))
+
+
+@pytest.mark.parametrize("n", [2048, 20_000])
+@pytest.mark.parametrize("ids_kind", ["sorted_runs", "one_id", "hub"])
+def test_segment_sum_scalar_runs(card, n, ids_kind):
+    """K2 on both routes with runs of equal ids: sorted ids with runs of
+    ~1000 items (longer than a warp and than one 32-item step), one id for
+    every item, and half the items on one id (unsorted)."""
+    e = 300_007
+    g = torch.Generator(device=card).manual_seed(2)
+    w = torch.rand(e, generator=g, device=card)
+    ids = torch.randint(0, 300, (e,), generator=g, device=card,
+                        dtype=torch.int32) * (n // 300)
+    if ids_kind == "sorted_runs":
+        ids = ids.sort().values
+    elif ids_kind == "one_id":
+        ids.fill_(n - 1)
+    else:
+        ids[torch.randperm(e, generator=g, device=card)[:e // 2]] = 5
+    route = "shared" if n <= 12288 else "global"
+    out = _one_launch("segment_sum_scalar", route,
+                      lambda: sc.segment_sum_scalar(w, ids, n))
+    # an f64 reference: the plain version's f32 sum of 300k items on one id
+    # is itself ~1e-5 off
+    ref = torch.zeros(n, dtype=torch.float64, device=card).index_add_(
+        0, ids.long(), w.double())
+    assert bool(((out.double() - ref).abs() <= _sum_tol(ref)).all())
+    ones = torch.ones_like(w)
     assert torch.equal(sc.segment_sum_scalar(ones, ids, n),
                        sc.segment_sum_scalar_plain(ones, ids, n))
 

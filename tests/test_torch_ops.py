@@ -29,13 +29,15 @@ def _t(a):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("order", ["unsorted", "sorted"])
+@pytest.mark.parametrize("order", ["unsorted", "sorted", "hub"])
 def test_scatter_add_matches_pallas_and_segment_sum(rng, dtype, order):
     n, e, f = 37, 300, 32
     vals = rng.normal(size=(e, f)).astype(np.float32)
     ids = rng.integers(0, n, e).astype(np.int32)
     if order == "sorted":
         ids = np.sort(ids)
+    elif order == "hub":            # half the items on one id, unsorted
+        ids[rng.permutation(e)[:e // 2]] = 5
     jv = jnp.asarray(vals, dtype=dtype)
     tv = _t(vals).to(getattr(torch, dtype))
     out = scatter_add(tv, _t(ids), n)

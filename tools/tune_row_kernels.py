@@ -1,12 +1,25 @@
 #!/usr/bin/env python3
-"""Time variants of the port's two row kernels on one NVIDIA card.
+"""Time variants of the port's row kernels on one NVIDIA card.
 
-    python3 tools/tune_row_kernels.py
+    python3 tools/tune_row_kernels.py [--kernels k1,k2,k7,k8]
 
-Builds variants of ``sgs_gnn_tpu_torch/csrc/scatter_sorted.cu`` (K7) and
-``spmm.cu`` (K8) from the checkout's sources with small text patches, under
-``build/tune/``, and times each with CUDA events on the bench partition of
-``chip_smoke.py`` (N=2048, E=1M, receiver-sorted):
+K1 (``csrc/scatter.cu``) and K2 (``csrc/segment_sum.cu``) take their grid
+from the wrapper's plan, so their variants are other plans passed to the
+built library, timed by the profiler's device time on ``chip_smoke.py``'s
+``row_cases`` (sampled receivers at q=200k, F=256 and 41; E=1M
+receiver-sorted and unsorted senders; K2 at E=1M sorted and q=200k
+sampled):
+
+  * K1: the slab route at W=16 (the plan) with the chunks the plan picks,
+    half and twice as many; at W=8; the direct route with float4 atomics
+    (the plan's route above a slab of one sector); and builds with one
+    constant changed (K1_BUILDS): 768 or 512 threads per slab block, 4 or 8 loads in flight per lane, and the direct
+    route with scalar atomics (rows.cuh's float4 atomic split into four);
+  * K2: items per block {2048, 4096 (the plan's floor), 8192, 16384}.
+
+K7 and K8 variants are built from the checkout's sources with small text
+patches, under ``build/tune/``, and timed with CUDA events on the bench
+partition of ``chip_smoke.py`` (N=2048, E=1M, receiver-sorted):
 
   * K7, E=1M, F=256 bf16, band = required_band: items per warp
     {64, 128, 256} x the atomics of runs that cross a warp's range
@@ -21,6 +34,7 @@ Each variant is held against the plain version (max abs error printed).
 Prints the card's name and power limit and one JSON line per variant,
 and writes them to ``build/tune/results.json``.
 """
+import argparse
 import ctypes
 import importlib
 import itertools
@@ -85,19 +99,148 @@ def cuda_ms(fn, iters=20):
     return a.elapsed_time(b) / iters
 
 
+def _bind(lib, fn_name):
+    fn = getattr(ctypes.CDLL(str(lib)), fn_name)
+    fn.argtypes = _build._SIGNATURES[fn_name]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+# K1 built otherwise: (tag, scatter.cu constant, value, rows.cuh patch)
+K1_BUILDS = (
+    ("direct scalar atomics", "kDirectWarps", 8, SCALAR),
+    ("slab W=16, 768 threads", "kSlabThreads", 768, None),
+    ("slab W=16, 512 threads", "kSlabThreads", 512, None),
+    ("slab W=16, unroll 4", "kSlabUnroll", 4, None),
+    ("slab W=16, unroll 8", "kSlabUnroll", 8, None))
+
+
+def k1_k2_variants(kernels, libs):
+    """K1 and K2 under other plans, and K1 as built otherwise (``libs``:
+    tag of K1_BUILDS -> library), on the main paths' ids; one JSON line per
+    (variant, case)."""
+    from sgs_gnn_tpu_torch import Graph
+    from sgs_gnn_tpu_torch.data import degree_prior
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    x, ei, y, tr = chip_smoke.build_partition()
+    n = chip_smoke.N_NODES
+    g = Graph.build(x, ei, y, tr, ~tr, None, device="cuda",
+                    prob=degree_prior(ei[0], ei[1], n), sort_by_receiver=True)
+    k1_cases, k2_cases = chip_smoke.row_cases(torch, g, gen)
+    keep = ("sampled receivers", "receiver-sorted E=1M",
+            "unsorted senders E=1M")
+    stream = torch.cuda.current_stream().cuda_stream
+    sms = sc._sm_count(0)
+    lib = _build.library()
+    modes = torch.zeros(2, dtype=torch.int32, device=dev)
+    rows = []
+
+    def timed(fn, funcs):
+        return chip_smoke.device_ms(torch, fn, funcs, iters=10)[0]
+    if "k1" in kernels:
+        builds = {tag: _bind(lib_path, "sgs_scatter_add")
+                  for tag, lib_path in libs.items()}
+        for case, ids, f in k1_cases:
+            if not case.startswith(keep):
+                continue
+            e = ids.shape[0]
+            vals = torch.randn(e, f, generator=gen, device=dev).to(
+                torch.bfloat16)
+            ref = sc.scatter_add_plain(vals, ids, n)
+            plan = sc.scatter_plan(n, f, 2, e, sms)
+            direct = sc.ScatterPlan("direct", 256, -(-f // 256), 256,
+                                    -(-e // 256), 0, 0)
+            variants = [("slab W=16 (plan)", plan, lib.sgs_scatter_add)]
+            variants += [(tag, direct if tag.startswith("direct") else plan,
+                          fn) for tag, fn in builds.items()]
+            for mult, tag in ((0.5, "half"), (2, "twice")):
+                chunks = max(1, int(plan.chunks * mult))
+                chunk = -(-e // chunks)
+                sub = -(-chunk // -(-chunk // plan.sub_items))
+                variants.append((f"slab W=16, chunks x{mult} ({tag})",
+                                 plan._replace(
+                                     chunk_items=chunk, chunks=-(-e // chunk),
+                                     sub_items=sub,
+                                     smem_bytes=sc.slab_smem(n, 16, sub)),
+                                 lib.sgs_scatter_add))
+            sub8 = min(plan.sub_items, 8192)     # two W=8 blocks per SM
+            chunks8 = min(2 * sms // -(-f // 8), -(-e // 4096))
+            variants.append(("slab W=8", sc.ScatterPlan(
+                "slab", 8, -(-f // 8), -(-e // chunks8), chunks8, sub8,
+                sc.slab_smem(n, 8, sub8)), lib.sgs_scatter_add))
+            variants.append(("direct float4 atomics", direct,
+                             lib.sgs_scatter_add))
+            for tag, p, fn in variants:
+                out = torch.zeros(n, f, device=dev)
+
+                def run(fn=fn, p=p, out=out):
+                    out.zero_()
+                    err = fn(vals.data_ptr(), 1, ids.data_ptr(),
+                             out.data_ptr(), e, f, n,
+                             int(p.route == "direct"), p.col_tile,
+                             p.chunk_items, p.sub_items, p.smem_bytes,
+                             modes.data_ptr(), stream)
+                    assert err == 0, (tag, err)
+                run()
+                row = dict(kernel="K1", case=case, variant=tag,
+                           grid=[p.col_tiles, p.chunks],
+                           device_ms=timed(run, ("scatter_slab_kernel",
+                                                 "scatter_direct_kernel")),
+                           max_abs_err=float((out - ref).abs().max()))
+                rows.append(row)
+                print(json.dumps(row), flush=True)
+    if "k2" in kernels:
+        for case, ids in k2_cases:
+            if case.startswith("sorted"):
+                continue
+            e = ids.shape[0]
+            w = torch.rand(e, generator=gen, device=dev)
+            ref = sc.segment_sum_scalar_plain(w, ids, n)
+            for items in (2048, 4096, 8192, 16384):
+                out = torch.zeros(n, device=dev)
+
+                def run(items=items, out=out):
+                    out.zero_()
+                    err = lib.sgs_segment_sum_scalar(
+                        w.data_ptr(), ids.data_ptr(), out.data_ptr(), e, n,
+                        items, stream)
+                    assert err == 0, err
+                run()
+                row = dict(kernel="K2", case=case,
+                           variant=f"items per block {items}",
+                           blocks=-(-e // items),
+                           device_ms=timed(run, ("segment_sum_kernel",)),
+                           max_abs_err=float((out - ref).abs().max()))
+                rows.append(row)
+                print(json.dumps(row), flush=True)
+    return rows
+
+
 def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--kernels", default="k1,k2,k7,k8")
+    kernels = ap.parse_args().kernels.split(",")
     if not torch.cuda.is_available():
         print("tune_row_kernels: no CUDA card", file=sys.stderr)
         return 1
     shutil.rmtree(OUT, ignore_errors=True)
     jobs = []
+    if "k1" in kernels:
+        for i, (tag, const, value, patch) in enumerate(K1_BUILDS):
+            jobs.append((tag, "sgs_scatter_add") + variant(
+                f"k1_{i}", "scatter.cu", const, value, rows_patch=patch))
     for items, mode in itertools.product((64, 128, 256), ("float4", "scalar")):
+        if "k7" not in kernels:
+            break
         jobs.append((f"k7 items={items} atomics={mode}",
                      "sgs_scatter_add_sorted") + variant(
             f"k7_{items}_{mode}", "scatter_sorted.cu", "kItemsPerWarp", items,
             rows_patch=SCALAR if mode == "scalar" else None))
     for edges, mode in itertools.product((32, 64, 128),
                                          ("staged", "float4", "scalar")):
+        if "k8" not in kernels:
+            break
         jobs.append((f"k8 edges={edges} flush={mode}", "sgs_spmm_fused")
                     + variant(f"k8_{edges}_{mode}", "spmm.cu",
                               "kEdgesPerWarp", edges,
@@ -114,6 +257,9 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
     print(smi.stdout.strip(), flush=True)
+    results = k1_k2_variants(kernels, {
+        tag: lib for tag, fn, _, lib in jobs if fn == "sgs_scatter_add"})
+    jobs = [j for j in jobs if j[1] != "sgs_scatter_add"]
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     _, edge_index, _, _ = chip_smoke.build_partition()
@@ -129,11 +275,8 @@ def main():
     xs = {f: torch.randn(n, f, generator=gen, device=dev).to(torch.bfloat16)
           for f in (256, 41)}
     stream = torch.cuda.current_stream().cuda_stream
-    results = []
     for tag, fn_name, _, lib in jobs:
-        fn = getattr(ctypes.CDLL(str(lib)), fn_name)
-        fn.argtypes = _build._SIGNATURES[fn_name]
-        fn.restype = ctypes.c_int
+        fn = _bind(lib, fn_name)
         row = dict(variant=tag)
         if fn_name == "sgs_scatter_add_sorted":
             out = torch.zeros(n, 256, device=dev)
