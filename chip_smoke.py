@@ -61,6 +61,28 @@ Phases, each printing one JSON line:
               frozen-sample step without dropout whose loss and gradients
               are held against the port on the CPU in f32 (a ``grad_check``
               line).
+  6. experiment  the CLI's path at full width: the port's
+              community_sbm_graph (9,100 nodes, 602 features, 41 classes,
+              ~4.5M directed edges) through run_experiment with
+              Scripts/run_reddit_scale.sh's flags (parsed by the port's
+              CLI parser; bf16, nhid 256, metis_threshold 1M: 5 native
+              partitions, q=200k), 2 epochs each of learned (hybrid_rescore
+              with the tile index), random, edge and full: a ``padded_rows``
+              line first (K1 and K2 against their plain versions on the
+              most-padded partition's ids, ghost-node run included), then an
+              ``experiment`` line per mode (parts, q, shape classes,
+              batches big / small / skipped, epoch and eval times,
+              edges/s steady, losses, final F1s, peak memory, launches per
+              epoch by kernel; learned must launch K1-K6, the baselines K1
+              and K2 only; the native partitioner must have run; the batch
+              loop of epoch 1 runs under no_host_sync); the CSV must hold
+              one row per mode; then learned resumed from its every-epoch
+              checkpoint to epoch 3 (must start at epoch 2 with the
+              restored losses), its epoch-2 batch loop profiled.
+  7. quality  tests/test_quality.py's configuration (SyntheticSBMLow, f32,
+              nhid 64, 60 epochs) through run_experiment for learned,
+              random and full: learned must beat random by 0.2 and full by
+              0.1 in final test F1.
 
 Then a ``kernels`` line (one entry per TPU kernel of the JAX package: route,
 the units it runs on, source, the TPU kernel it replaces, launches on each
@@ -1335,6 +1357,288 @@ def phase_train(torch, arrays):
     return launches
 
 
+# the experiment phase: a Reddit-shaped graph (the port's
+# community_sbm_graph at Reddit's widths: 602 features, 41 classes,
+# deg=330) small enough for ~5 native partitions of ~1M kept edges at
+# metis_threshold=1M, driven through run_experiment with
+# Scripts/run_reddit_scale.sh's flags
+EXPERIMENT_NODES, EXPERIMENT_COMMUNITIES = 9_100, 5
+EXPERIMENT_THRESHOLD, EXPERIMENT_EPOCHS = 1_000_000, 2
+EXPERIMENT_MODES = ("learned", "random", "edge", "full")
+SYNC_CHECKED_EPOCH = 1        # the batch loop run under no_host_sync
+HEADS = ("score_head_sampled", "score_head_sampled_banded",
+         "score_head_bwd", "score_head_tiles")
+ROWS = ("scatter_add", "segment_sum_scalar")
+# the quality phase: tests/test_quality.py's configuration (:14-21)
+QUALITY_MODES = ("learned", "random", "full")
+QUALITY_KW = dict(dataset="SyntheticSBMLow", pipeline="hybrid", GNN="GCN",
+                  edge_mlp_type="GCN", conditional=True, reg1=True,
+                  reg2=True, sample_perc=0.2, nhid=64, epochs=60, runs=1,
+                  save_csv=False, num_samples_eval=3, convergence=0.0)
+# the JAX package's F1s on a TPU (commit e0228ac): the reference's quality,
+# not numbers of the port
+QUALITY_TPU_REFERENCE = dict(learned=0.8225, random=0.406, full=0.525)
+
+
+def experiment_dataset():
+    """The experiment's HostDataset, prepared as get_dataset prepares a
+    synthetic fixture (undirected, degree prior, edge homophily)."""
+    from sgs_gnn_tpu_torch.data import (HostDataset, community_sbm_graph,
+                                        degree_prior, edge_homophily,
+                                        to_undirected)
+    x, ei, y, (tr, va, te) = community_sbm_graph(
+        n=EXPERIMENT_NODES, communities=EXPERIMENT_COMMUNITIES, seed=0)
+    ei = to_undirected(ei)
+    return HostDataset(
+        name=f"SyntheticReddit{EXPERIMENT_NODES}", x=x, edge_index=ei, y=y,
+        train_mask=tr, val_mask=va, test_mask=te,
+        prob=degree_prior(ei[0], ei[1], EXPERIMENT_NODES),
+        num_classes=int(y.max()) + 1, He=edge_homophily(ei, y))
+
+
+def experiment_args(mode, results_dir, epochs=EXPERIMENT_EPOCHS, extra=()):
+    """Scripts/run_reddit_scale.sh's flags (TPU-only ones left out) for
+    the port's CLI parser."""
+    return ["--dataset", "SyntheticReddit", "--mode", mode, "--runs", "1",
+            "--epochs", str(epochs), "--edge_mlp_type", "GCN", "--GNN",
+            "GCN", "--sparse_edge_mlp", "true", "--conditional", "true",
+            "--reg1", "true", "--reg2", "true", "--sample_perc", "0.2",
+            "--pipeline", "hybrid", "--metis_threshold",
+            str(EXPERIMENT_THRESHOLD), "--dtype", "bfloat16", "--nhid",
+            "256", "--num_samples_eval", "11", "--convergence", "0",
+            "--save_csv", "true", "--stats", "true", "--log", "true",
+            "--results_dir", results_dir, *extra]
+
+
+def check_padded_rows(torch, cfg, ds):
+    """K1 and K2 against their plain versions on the partition with the
+    most padding: its receivers end in one run of ghost-node ids (every
+    padding edge is a self-loop on node max_n - 1)."""
+    from sgs_gnn_tpu_torch.ops import scatter as sc
+    from sgs_gnn_tpu_torch.run import driver
+    batches, q, _ = driver.prepare_batches(cfg, ds, DEVICE)
+    valid = [int(g.edge_mask.sum()) for g in batches]
+    bi = max(range(len(batches)),
+             key=lambda i: batches[i].num_edges - valid[i])
+    g = batches[bi]
+    ghost = g.num_nodes - 1
+    pad = g.num_edges - valid[bi]
+    gen = torch.Generator(device=DEVICE).manual_seed(17)
+    out = dict(batch=bi, edges=g.num_edges, valid_edges=valid[bi],
+               ghost_ids=pad, cases=[])
+    check(pad > 0 and int((g.receivers == ghost).sum()) >= pad,
+          f"padded batch {bi}: {pad} padding edges")
+    for name, ids in (("receivers", g.receivers), ("senders", g.senders)):
+        vals = torch.randn(g.num_edges, NHID, generator=gen,
+                           device=DEVICE).to(torch.bfloat16)
+        got = sc.scatter_add(vals, ids, g.num_nodes)
+        ref = sc.scatter_add_plain(vals, ids, g.num_nodes)
+        tol = sum_tolerance(sc.scatter_add_plain(vals.abs(), ids,
+                                                 g.num_nodes))
+        err = float((got - ref).abs().max())
+        check(bool(((got - ref).abs() <= tol).all()),
+              f"K1 on padded {name}: error {err} above the tolerance")
+        out["cases"].append(dict(kernel="scatter_add", ids=name, F=NHID,
+                                 max_abs_err=err))
+    w = torch.rand(g.num_edges, generator=gen, device=DEVICE)
+    got = sc.segment_sum_scalar(w, g.receivers, g.num_nodes)
+    ref = sc.segment_sum_scalar_plain(w, g.receivers, g.num_nodes)
+    err = float((got - ref).abs().max())
+    check(bool(((got - ref).abs() <= sum_tolerance(ref)).all()),
+          f"K2 on padded receivers: error {err} above the tolerance")
+    out["cases"].append(dict(kernel="segment_sum_scalar", ids="receivers",
+                             max_abs_err=err, ghost_sum=float(got[ghost]),
+                             ghost_sum_plain=float(ref[ghost])))
+    emit("padded_rows", tolerance="1e-5 of the summed magnitudes per row "
+         "+ 1e-6", **out)
+    del batches
+    torch.cuda.empty_cache()
+
+
+def run_experiment_counted(torch, cfg, ds, label, profile_epoch=None):
+    """One run_experiment of the card with every launch counter at 0 just
+    before it: launches by kernel per epoch (train and eval, cut at the
+    driver's [epoch-time] and [eval-time] lines) and the batch loop of
+    epoch SYNC_CHECKED_EPOCH under no_host_sync, which fails on any wait
+    of the host for the card and says where. With ``profile_epoch`` that
+    epoch's batch loop runs under torch.profiler (a ``profile`` line)."""
+    import collections
+    import traceback
+    from sgs_gnn_tpu_torch.ops._build import LAUNCHES
+    from sgs_gnn_tpu_torch.run import driver
+    lines, per_epoch = [], {"train": [], "eval": []}
+    last = collections.Counter()
+
+    def log_fn(line):
+        lines.append(line)
+        m = re.match(r"\[(epoch|eval)-time\] epoch=(\d+)", line)
+        if m:
+            now = collections.Counter(LAUNCHES)
+            per_epoch["train" if m.group(1) == "epoch" else "eval"].append(
+                dict(now - last))
+            last.clear()
+            last.update(now)
+
+    train_epoch = driver._train_epoch
+
+    def checked(*args):
+        epoch = args[4]
+        if epoch == profile_epoch:
+            out = []
+            emit("profile", call=f"{label} batch loop of epoch {epoch}",
+                 **profile_breakdown(torch,
+                                     lambda: out.append(train_epoch(*args))))
+            return out[0]
+        if epoch != SYNC_CHECKED_EPOCH:
+            return train_epoch(*args)
+        torch.cuda.synchronize()
+        try:
+            with no_host_sync(torch):
+                return train_epoch(*args)
+        except RuntimeError as exc:
+            where = "".join(traceback.format_exc(limit=-6).splitlines(True)
+                            [-14:])
+            raise SmokeFailure(f"{label}: the batch loop of epoch {epoch} "
+                               f"waited for the card: {exc}\n{where}")
+    driver._train_epoch = checked
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        LAUNCHES.clear()
+        t0 = time.perf_counter()
+        (res,) = driver.run_experiment(cfg, ds, log_fn=log_fn,
+                                       device=DEVICE)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = dict(LAUNCHES)
+    finally:
+        driver._train_epoch = train_epoch
+    return res, lines, per_epoch, launches, seconds
+
+
+def _check_result(label, res):
+    check(all(np.isfinite(res.losses)) and res.losses,
+          f"{label}: losses {res.losses}")
+    f1s = [res.final_train_f1, res.final_val_f1, res.final_test_f1]
+    f1s += res.train_curve + res.val_curve + res.test_curve
+    check(all(0.0 <= f <= 1.0 for f in f1s), f"{label}: F1s {f1s}")
+
+
+def phase_experiment(torch):
+    """Each mode through run_experiment at full width, then a resume;
+    returns {path: launches} for the kernels line."""
+    import csv
+    import tempfile
+    from sgs_gnn_tpu_torch.run.cli import config_from_args
+    t0 = time.perf_counter()
+    ds = experiment_dataset()
+    data_s = time.perf_counter() - t0
+    paths = {}
+    with tempfile.TemporaryDirectory() as results_dir:
+        cfgs = {m: config_from_args(experiment_args(
+            m, results_dir, extra=(["--checkpoint_every", "1"]
+                                   if m == "learned" else [])))
+            for m in EXPERIMENT_MODES}
+        check_padded_rows(torch, cfgs["learned"], ds)
+        results = {}
+        for mode, cfg in cfgs.items():
+            res, lines, per_epoch, launches, seconds = \
+                run_experiment_counted(torch, cfg, ds, mode)
+            results[mode] = res
+            _check_result(mode, res)
+            plan = res.plan
+            check(plan["partitioner"] == "native",
+                  f"{mode}: partitioner {plan['partitioner']}")
+            heads = {k: launches.get(k, 0) for k in HEADS}
+            check(all(launches.get(k, 0) > 0 for k in ROWS),
+                  f"{mode}: K1/K2 not launched: {launches}")
+            if mode == "learned":
+                check(all(heads.values()), f"learned: a head kernel (K3-K6) "
+                                           f"was not launched: {launches}")
+            else:
+                check(set(launches) == set(ROWS),
+                      f"{mode}: launched more than K1 and K2: {launches}")
+            emit("experiment", mode=mode, nodes=ds.num_nodes,
+                 edges=ds.num_edges, features=ds.x.shape[1],
+                 classes=ds.num_classes, he=ds.He, dataset_s=data_s,
+                 parts=plan["parts"], q=plan["q"],
+                 partitioner=plan["partitioner"],
+                 shape_classes=plan["shape_classes"],
+                 valid_edges=plan["valid_edges"],
+                 batches_per_epoch=dict(big=plan["big"], small=plan["small"],
+                                        skipped=plan["skipped"]),
+                 epoch_s=res.epoch_times,
+                 eval_ms=[t * 1e3 for t in res.eval_times],
+                 edges_per_s_steady=res.edges_per_s_steady,
+                 run_s=seconds, losses=res.losses,
+                 final_f1=dict(train=res.final_train_f1,
+                               val=res.final_val_f1,
+                               test=res.final_test_f1),
+                 peak_device_mem_mb=res.peak_device_mem_mb,
+                 launches_per_epoch=per_epoch, launches=launches,
+                 sync_checked_epoch=SYNC_CHECKED_EPOCH,
+                 fastpath=[ln for ln in lines
+                           if ln.startswith(("[fastpath]", "[batches]"))],
+                 stats=next(ln for ln in lines if ln.startswith("[stats]")))
+            paths[f"experiment_{mode}"] = launches
+            torch.cuda.empty_cache()
+        with open(f"{results_dir}/{ds.name}/0.2.csv") as fh:
+            rows = list(csv.reader(fh))[1:]
+        check([r[3] for r in rows] == list(EXPERIMENT_MODES),
+              f"CSV rows {rows}")
+
+        # resume: learned checkpointed every epoch; run on to epoch 3
+        cfg = config_from_args(experiment_args(
+            "learned", results_dir, epochs=EXPERIMENT_EPOCHS + 1,
+            extra=["--resume", "true", "--save_csv", "false"]))
+        res, lines, _, launches, seconds = run_experiment_counted(
+            torch, cfg, ds, "resume", profile_epoch=EXPERIMENT_EPOCHS)
+        _check_result("resume", res)
+        before = results["learned"].losses
+        check(res.start_epoch == EXPERIMENT_EPOCHS
+              and res.losses[:EXPERIMENT_EPOCHS] == before
+              and len(res.losses) == EXPERIMENT_EPOCHS + 1,
+              f"resume: start {res.start_epoch}, losses {res.losses} "
+              f"after {before}")
+        emit("experiment", mode="learned_resumed", start_epoch=res.start_epoch,
+             losses=res.losses, epoch_s=res.epoch_times, run_s=seconds,
+             final_f1=dict(train=res.final_train_f1, val=res.final_val_f1,
+                           test=res.final_test_f1),
+             resumed_line=next(ln for ln in lines
+                               if ln.startswith("resumed run")))
+    torch.cuda.empty_cache()
+    return paths
+
+
+def phase_quality(torch):
+    """tests/test_quality.py's claim on the card: the learned sparsifier
+    beats random edges by 0.2 and the full graph by 0.1 in test F1."""
+    from sgs_gnn_tpu_torch import Config
+    from sgs_gnn_tpu_torch.data import get_dataset
+    from sgs_gnn_tpu_torch.run import driver
+    cfg = Config(**QUALITY_KW)
+    ds = get_dataset(cfg)
+    f1, detail = {}, {}
+    for mode in QUALITY_MODES:
+        t0 = time.perf_counter()
+        (res,) = driver.run_experiment(cfg.replace(mode=mode), ds,
+                                       log_fn=lambda *a: None, device=DEVICE)
+        _check_result(f"quality {mode}", res)
+        f1[mode] = res.final_test_f1
+        detail[mode] = dict(run_s=time.perf_counter() - t0,
+                            mean_epoch_s=res.mean_epoch_time,
+                            final_val_f1=res.final_val_f1,
+                            best_test_f1=res.best_test_f1)
+    emit("quality", config=QUALITY_KW, he=ds.He, test_f1=f1, detail=detail,
+         margins=dict(learned_minus_random=f1["learned"] - f1["random"],
+                      learned_minus_full=f1["learned"] - f1["full"]),
+         tpu_reference_f1=QUALITY_TPU_REFERENCE)
+    check(f1["learned"] > f1["random"] + 0.2,
+          f"quality: learned {f1['learned']} vs random {f1['random']}")
+    check(f1["learned"] > f1["full"] + 0.1,
+          f"quality: learned {f1['learned']} vs full {f1['full']}")
+
+
 # one entry per TPU kernel of the JAX package (each function that reaches
 # pl.pallas_call): the port's kernel name, its source and what it replaces
 KERNELS = {
@@ -1391,6 +1695,8 @@ def main():
     torch.cuda.empty_cache()
     paths["serve"] = phase_serve(torch, arrays)
     paths.update(phase_train(torch, arrays))
+    paths.update(phase_experiment(torch))
+    phase_quality(torch)
 
     line = []
     for name, (source, replaces) in KERNELS.items():

@@ -1,3 +1,3 @@
-from .evaluate import aggregate_eval, make_eval_step
+from .evaluate import accumulate_eval_device, aggregate_eval, make_eval_step
 
-__all__ = ["aggregate_eval", "make_eval_step"]
+__all__ = ["accumulate_eval_device", "aggregate_eval", "make_eval_step"]

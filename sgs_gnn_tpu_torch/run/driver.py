@@ -1,0 +1,482 @@
+"""Experiment driver, sequential path (port of ``run/driver.py``: the
+equivalent of the reference's main.py run loop).
+
+As in the JAX package (reference main.py:16-321):
+  * partition decision: E >= metis_threshold -> num_parts =
+    ceil(E / threshold) (or ``num_partitions``), q = threshold *
+    sample_perc, the native partitioner (falling back to RCM), unused
+    parts compacted away; else one batch with q = E * sample_perc;
+  * cluster batches shuffled every epoch, class-major, from
+    ``np.random.default_rng(seed + run)``;
+  * per run: model and dual optimizer, the epoch loop, the ensemble eval
+    per epoch, best-val tracking (with its temperature), early stop when
+    std(last 5 losses) < ``convergence`` after epoch 5, the final eval on
+    the best-val parameters, the ``[stats]`` line, the CSV row and the
+    multi-run summary;
+  * checkpoint / resume of the whole training state (``run/checkpoint.py``).
+
+The epoch runs as a per-batch loop (``scan_epoch`` 'auto' and 'off' alike;
+the graphed epoch is ROADMAP.md §1 item 6). Each batch takes the sampled
+step or, when its VALID edge count is <= q, the small step
+(``force_small``); a batch without train nodes is skipped but counts in
+the loss divisor. Every batch's random draws come from one
+``torch.Generator`` on the batch's device, reseeded from (seed, run,
+epoch * n_batches + batch + 1), the counterpart of the JAX driver's
+``fold_in``; eval draws use 2**30 + epoch and the final eval 2**31 - 1. A
+batch's noise thus depends only on its global id, and a resumed run
+(which also replays the skipped epochs' shuffles) repeats the run it
+resumes. The loop reads the device back once per epoch (the loss and the
+conditional-update count) and the eval once per eval; the valid edge
+counts and train-node flags are taken once, at preparation.
+
+What the JAX driver has and this port does not yet carry raises
+``NotImplementedError`` naming its ROADMAP.md item: ``data_parallel``,
+``halo``, ``multihost`` (§1 item 8), ``gpu_profile``, ``debug_checks``,
+``plot_curve`` (item 9), backbones and scorers other than GCN (item 7).
+"""
+from __future__ import annotations
+
+import csv
+import os
+import time
+from dataclasses import dataclass, field
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from ..core.config import Config
+from ..core.device import resolve_device
+from ..core.graph import Graph
+from ..data.partition import (induced_subgraphs, partition_nodes,
+                              resolve_partitioner)
+from ..data.registry import HostDataset, get_dataset
+from ..eval import accumulate_eval_device, aggregate_eval, make_eval_step
+from ..models import get_model
+from ..train import DualOptimizer, make_train_step
+from .checkpoint import TrainState, load_checkpoint, save_checkpoint
+
+
+@dataclass
+class RunResult:
+    best_val_f1: float = 0.0
+    best_test_f1: float = 0.0          # best test seen during training
+    test_at_best_val: float = 0.0
+    final_test_f1: float = 0.0         # after reloading best-val params
+    final_train_f1: float = 0.0
+    final_val_f1: float = 0.0
+    train_time_sec: float = 0.0
+    mean_epoch_time: float = 0.0
+    num_iterations: int = 0
+    conditional_updates: int = 0
+    total_updates: int = 0
+    losses: List[float] = field(default_factory=list)
+    train_curve: List[float] = field(default_factory=list)
+    val_curve: List[float] = field(default_factory=list)
+    test_curve: List[float] = field(default_factory=list)
+    # the port's own records of the run: what [stats] and [epoch-time]
+    # print, and the batch plan of the dataset line
+    epoch_times: List[float] = field(default_factory=list)
+    eval_times: List[float] = field(default_factory=list)
+    start_epoch: int = 0
+    edges_per_s: float = 0.0
+    edges_per_s_steady: float = 0.0
+    peak_device_mem_mb: Optional[float] = None
+    plan: dict = field(default_factory=dict)
+
+
+def _roadmap_item(what: str, item: int):
+    return NotImplementedError(
+        f"{what}: not ported to the PyTorch package yet (ROADMAP.md §1 "
+        f"item {item})")
+
+
+def check_ported(cfg: Config) -> None:
+    """Raise for what the JAX driver runs and this port does not."""
+    if cfg.data_parallel == "on":
+        raise _roadmap_item("data_parallel='on'", 8)
+    if cfg.halo:
+        raise _roadmap_item("halo=True", 8)
+    if cfg.multihost:
+        raise _roadmap_item("multihost=True", 8)
+    for flag in ("gpu_profile", "debug_checks", "plot_curve"):
+        if getattr(cfg, flag):
+            raise _roadmap_item(f"{flag}=True", 9)
+    if cfg.GNN != "GCN" or cfg.edge_mlp_type != "GCN":
+        raise _roadmap_item(f"GNN={cfg.GNN!r} with edge_mlp_type="
+                            f"{cfg.edge_mlp_type!r}", 7)
+
+
+def want_tile_index(cfg: Config, device) -> bool:
+    """Build the tile-pair edge index at preparation? It serves only the
+    learned hybrid_rescore sampling pass (K6); 'auto' builds it where K6
+    is the fast path, on a CUDA device; 'on' anywhere; 'off' never."""
+    if cfg.tile_index == "off":
+        return False
+    if not (cfg.mode == "learned" and cfg.pipeline == "hybrid"
+            and cfg.hybrid_rescore):
+        return False
+    return cfg.tile_index == "on" or torch.device(device).type == "cuda"
+
+
+def prepare_batches(cfg: Config, ds: HostDataset, device="cuda"):
+    """Partition decision + batch materialisation on ``device``
+    (main.py:41-67). Returns (batches, q, partitioner), the partitioner
+    that ran ('native' or 'rcm'), or None for one unpartitioned batch."""
+    e = ds.num_edges
+    tiles = want_tile_index(cfg, device)
+    if e < cfg.metis_threshold:
+        q = int(e * cfg.sample_perc)
+        return [Graph.build(ds.x, ds.edge_index, ds.y, ds.train_mask,
+                            ds.val_mask, ds.test_mask, prob=ds.prob,
+                            num_classes=ds.num_classes, sort_by_receiver=True,
+                            tile_index=tiles, device=device)], q, None
+    num_parts = cfg.num_partitions or int(np.ceil(e / cfg.metis_threshold))
+    q = int(cfg.metis_threshold * cfg.sample_perc)
+    method = resolve_partitioner("native")
+    part = partition_nodes(ds.edge_index, ds.num_nodes, num_parts,
+                           method=method)
+    # the degree-capped packer may leave parts unused (num_parts is a
+    # ceiling, like METIS's nparts): drop them, no empty padded batches
+    used = np.unique(part)
+    if used.size < num_parts:
+        remap = np.full(num_parts, -1, np.int32)
+        remap[used] = np.arange(used.size, dtype=np.int32)
+        part = remap[part]
+        num_parts = int(used.size)
+    batches = induced_subgraphs(ds.x, ds.edge_index, ds.y, ds.train_mask,
+                                ds.val_mask, ds.test_mask, part, num_parts,
+                                tile_index=tiles,
+                                shape_classes=cfg.shape_classes,
+                                device=device)
+    return batches, q, method
+
+
+def log_fastpath_status(cfg: Config, batches, device, log_fn) -> None:
+    """Whether the tile score kernel (K6) is engaged and why not, how the
+    epoch runs, and the device."""
+    g0 = batches[0]
+    dev = torch.device(device)
+    if not (cfg.mode == "learned" and cfg.pipeline == "hybrid"
+            and cfg.hybrid_rescore):
+        tile_s = "off (serves the learned hybrid_rescore path only)"
+    elif cfg.tile_index == "off":
+        tile_s = "off (--tile_index off)"
+    elif cfg.tile_index == "auto" and dev.type != "cuda":
+        tile_s = f"off (tile_index=auto on device={dev.type}: K6 is the " \
+                 "fast path on the card only)"
+    elif g0.tile_t == 0:
+        tile_s = "off (tile layout declined: padded slots would exceed " \
+                 "1.35x E in a batch; the sampling pass scores every edge " \
+                 "with K3)"
+    else:
+        slots = g0.tile_ls.shape[0]
+        tile_s = (f"on (t={g0.tile_t} b={g0.tile_b} slots={slots} "
+                  f"overhead={slots / max(g0.num_edges, 1):.2f}x)")
+    log_fn(f"[fastpath] tile_score_kernel={tile_s}")
+    log_fn(f"[fastpath] epoch=per-batch loop (scan_epoch={cfg.scan_epoch}; "
+           "the graphed epoch is ROADMAP.md §1 item 6)")
+    name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "host"
+    log_fn(f"[fastpath] device={dev} ({name})")
+
+
+def batch_seed(seed: int, run: int, n: int) -> int:
+    """The 64-bit generator seed of draw stream n of a run."""
+    return int(np.random.SeedSequence([seed, run, n])
+               .generate_state(1, np.uint64)[0])
+
+
+def init_model(cfg: Config, in_channels: int, num_classes: int, run: int,
+               device):
+    """The run's model, its parameters drawn from seed * 1000 + run (the
+    JAX driver's init key)."""
+    return get_model(cfg.GNN, in_channels, cfg.nhid, num_classes,
+                     cfg.drop_rate, cfg.edge_mlp_type, dtype=cfg.dtype,
+                     device=device,
+                     generator=torch.Generator().manual_seed(
+                         cfg.seed * 1000 + run))
+
+
+def _epoch_order(shuffle_rng, class_members):
+    """Class-major shuffle: the class visit sequence, then each class's
+    batches (one class: a plain global shuffle)."""
+    if len(class_members) > 1:
+        class_seq = [int(c) for c in
+                     shuffle_rng.permutation(len(class_members))]
+    else:
+        class_seq = [0]
+    local = {ci: shuffle_rng.permutation(len(class_members[ci]))
+             for ci in class_seq}
+    return [class_members[ci][j] for ci in class_seq for j in local[ci]]
+
+
+def _train_epoch(steps, batches, order, plan, epoch, gen, seed, run):
+    """One epoch's batch loop. Enqueues work only: returns the summed
+    loss and conditional-update count as device scalars, and the last
+    temperature. ``plan[bi]`` is 0 (skip: no train nodes), 1 (small) or
+    2 (sampled)."""
+    dev = batches[0].x.device
+    loss_acc = torch.zeros((), device=dev)
+    cond_acc = torch.zeros((), device=dev)
+    temp = 1.0
+    n_batches = len(batches)
+    for bi in order:
+        if plan[bi] == 0:
+            continue
+        gen.manual_seed(batch_seed(seed, run, epoch * n_batches + bi + 1))
+        m = steps[plan[bi]](batches[bi], epoch, gen)
+        loss_acc = loss_acc + m.loss
+        cond_acc = cond_acc + m.conditional_update
+        temp = m.temperature
+    return loss_acc, cond_acc, temp
+
+
+def _evaluate(evals, batches, small, gen, stream_seed):
+    """Ensemble eval of every batch on the device, each batch's draws from
+    the same seed (the JAX driver passes one key to every batch)."""
+    acc = None
+    for bi, g in enumerate(batches):
+        gen.manual_seed(stream_seed)
+        acc = accumulate_eval_device(acc, evals[small[bi]](g, gen))
+    return acc
+
+
+def run_experiment(cfg: Config, ds: Optional[HostDataset] = None,
+                   log_fn=print, device="cuda") -> List[RunResult]:
+    cfg.validate()
+    check_ported(cfg)
+    dev = resolve_device(device)
+    if ds is None:
+        ds = get_dataset(cfg)
+    batches, q, partitioner = prepare_batches(cfg, ds, dev)
+    n_batches = len(batches)
+    # host facts of each batch, read once: the per-batch decisions never
+    # wait for the card
+    valid_e = [int(g.edge_mask.cpu().numpy().sum()) for g in batches]
+    has_train = [bool(g.train_mask.cpu().numpy().any()) for g in batches]
+    plan = [0 if not has_train[i] else (2 if valid_e[i] > q else 1)
+            for i in range(n_batches)]
+    small = [int(v <= q) for v in valid_e]
+    shape_of = [g.num_edges for g in batches]
+    class_shapes = sorted(set(shape_of), reverse=True)
+    class_members = [[i for i in range(n_batches) if shape_of[i] == cs]
+                     for cs in class_shapes]
+    n_trained = sum(1 for a in plan if a)
+    batch_plan = dict(parts=n_batches, q=q, partitioner=partitioner,
+                      shape_classes=[[len(m), cs] for m, cs in
+                                     zip(class_members, class_shapes)],
+                      big=plan.count(2), small=plan.count(1),
+                      skipped=plan.count(0), valid_edges=sum(valid_e))
+    if cfg.log:
+        log_fn(f"dataset={ds.name} N={ds.num_nodes} E={ds.num_edges} "
+               f"He={ds.He:.4f} parts={n_batches} q={q} "
+               f"partitioner={partitioner or 'none'}")
+        log_fn(f"[batches] shape_classes={batch_plan['shape_classes']} "
+               f"big={batch_plan['big']} small={batch_plan['small']} "
+               f"skipped={batch_plan['skipped']} "
+               f"valid_edges={batch_plan['valid_edges']}")
+        log_fastpath_status(cfg, batches, dev, log_fn)
+
+    results: List[RunResult] = []
+    for run in range(cfg.runs):
+        model = init_model(cfg, batches[0].x.shape[1], ds.num_classes, run,
+                           dev)
+        opt = DualOptimizer.create(model, cfg.GNN, cfg.lr, cfg.weight_decay)
+        steps = {2: make_train_step(cfg, model, opt, q, cfg.epochs),
+                 1: make_train_step(cfg, model, opt, q, cfg.epochs,
+                                    force_small=True)}
+        evals = {0: make_eval_step(cfg, model, q),
+                 1: make_eval_step(cfg, model, q, force_small=True)}
+        gen = torch.Generator(device=dev)
+
+        res = RunResult(plan=batch_plan)
+        best_state = None
+        best_temp = 0.0
+        epoch_times = res.epoch_times
+        shuffle_rng = np.random.default_rng(cfg.seed + run)
+        num_iteration = cfg.epochs
+        start_epoch = 0
+        ckpt_path = os.path.join(
+            cfg.results_dir, "ckpt",
+            f"{cfg.dataset}_{cfg.mode}_{cfg.pipeline}_run{run}.pt")
+        if cfg.resume:
+            st = load_checkpoint(ckpt_path, dev)
+            if st is not None:
+                model.load_state_dict(st.params)
+                opt.load_state_dict(st.opt_state)
+                start_epoch = st.epoch + 1
+                res.best_val_f1 = st.best_val_f1
+                res.test_at_best_val = st.test_at_best_val
+                res.best_test_f1 = st.best_test_f1
+                best_temp = st.best_temperature
+                res.losses = list(st.losses)
+                res.train_curve = list(st.train_curve)
+                res.val_curve = list(st.val_curve)
+                res.test_curve = list(st.test_curve)
+                best_state = st.best_params or {
+                    k: v.detach().clone()
+                    for k, v in model.state_dict().items()}
+                for _ in range(start_epoch):     # the skipped shuffles
+                    _epoch_order(shuffle_rng, class_members)
+                if cfg.log:
+                    log_fn(f"resumed run {run} from epoch {start_epoch} "
+                           f"(best_val_f1={st.best_val_f1:.4f})")
+        res.start_epoch = start_epoch
+
+        for epoch in range(start_epoch, cfg.epochs):
+            t0 = time.perf_counter()
+            order = _epoch_order(shuffle_rng, class_members)
+            res.total_updates += n_trained
+            loss_acc, cond_acc, temp = _train_epoch(
+                steps, batches, order, plan, epoch, gen, cfg.seed, run)
+            # the epoch's one readback; the reference divides by
+            # len(cluster_loader), skipped batches included
+            loss_sum, cond = torch.stack([loss_acc, cond_acc]).tolist()
+            loss = loss_sum / n_batches
+            res.conditional_updates += int(cond)
+            res.losses.append(loss)
+            epoch_times.append(time.perf_counter() - t0)
+            if cfg.stats and cfg.log and epoch < 16:
+                log_fn(f"[epoch-time] epoch={epoch} "
+                       f"sec={epoch_times[-1]:.3f}")
+
+            if cfg.eval:
+                t1 = time.perf_counter()
+                agg = aggregate_eval([_evaluate(
+                    evals, batches, small, gen,
+                    batch_seed(cfg.seed, run, 2**30 + epoch))])
+                res.eval_times.append(time.perf_counter() - t1)
+                if cfg.stats and cfg.log and epoch < 16:
+                    log_fn(f"[eval-time] epoch={epoch} "
+                           f"ms={res.eval_times[-1] * 1e3:.1f}")
+                tr_f1, va_f1, te_f1 = (agg["train_f1"], agg["val_f1"],
+                                       agg["test_f1"])
+                res.train_curve.append(tr_f1)
+                res.val_curve.append(va_f1)
+                res.test_curve.append(te_f1)
+                if va_f1 >= res.best_val_f1:
+                    res.best_val_f1 = va_f1
+                    res.test_at_best_val = te_f1
+                    # a copy on the device: no host transfer per improvement
+                    best_state = {k: v.detach().clone()
+                                  for k, v in model.state_dict().items()}
+                    best_temp = temp
+                    if cfg.log:
+                        log_fn(f"*Epoch {epoch}, model saved with Loss: "
+                               f"{loss:.4f}, Train F1: {tr_f1:.4f}, Val F1: "
+                               f"{va_f1:.4f}, Test F1: {te_f1:.4f}")
+                res.best_test_f1 = max(res.best_test_f1, te_f1)
+                if cfg.log and epoch % 100 == 0:
+                    log_fn(f"Epoch {epoch}, Loss: {loss:.4f}, Train F1: "
+                           f"{tr_f1:.4f}, Val F1: {va_f1:.4f}, Test F1: "
+                           f"{te_f1:.4f}")
+
+            if cfg.checkpoint_every and \
+                    (epoch + 1) % cfg.checkpoint_every == 0:
+                save_checkpoint(ckpt_path, TrainState(
+                    params=model.state_dict(), opt_state=opt.state_dict(),
+                    epoch=epoch, best_val_f1=res.best_val_f1,
+                    test_at_best_val=res.test_at_best_val,
+                    best_temperature=best_temp, losses=res.losses,
+                    best_params=best_state, best_test_f1=res.best_test_f1,
+                    train_curve=res.train_curve, val_curve=res.val_curve,
+                    test_curve=res.test_curve))
+
+            if epoch >= 5 and float(np.std(res.losses[-5:])) < \
+                    cfg.convergence:
+                num_iteration = epoch + 1
+                break
+
+        res.num_iterations = num_iteration
+        res.train_time_sec = float(np.sum(epoch_times))
+        res.mean_epoch_time = float(np.mean(epoch_times)) \
+            if epoch_times else 0.0
+
+        # reload the best-val parameters for the final ensemble eval
+        # (main.py:264-270)
+        if best_state is not None:
+            model.load_state_dict(best_state)
+        agg = aggregate_eval([_evaluate(
+            evals, batches, small, gen,
+            batch_seed(cfg.seed, run, 2**31 - 1))])
+        res.final_train_f1 = agg["train_f1"]
+        res.final_val_f1 = agg["val_f1"]
+        res.final_test_f1 = agg["test_f1"]
+
+        log_fn(f"Run: {run}")
+        log_fn(f"Mean epoch time of run {res.mean_epoch_time:.4f}")
+        log_fn(f"Iteration:  {res.num_iterations}")
+        log_fn(f"EdgeMLP updated {res.conditional_updates}/"
+               f"{res.total_updates}")
+        log_fn(f"Best Test F1 throughout: {res.best_test_f1:.4f}")
+        log_fn(f"Best Test F1 after loading saved model: "
+               f"{res.final_test_f1:.4f}")
+        # edges/s = valid (unpadded) edges trained per second; steady =
+        # over the median epoch (the first one holds the warm-up)
+        res.edges_per_s = sum(valid_e) / max(res.mean_epoch_time, 1e-9)
+        res.edges_per_s_steady = (
+            sum(valid_e) / max(float(np.median(epoch_times)), 1e-9)
+            if epoch_times else 0.0)
+        res.peak_device_mem_mb = _device_peak_mem_mb(dev)
+        if cfg.stats:
+            mem = res.peak_device_mem_mb
+            mem_s = f"{mem:.2f}" if mem is not None else "NA"
+            log_fn(f"[stats] pipeline={cfg.pipeline} run={run} "
+                   f"train_time_sec={res.train_time_sec:.4f} "
+                   f"edges_per_s={res.edges_per_s:.0f} "
+                   f"edges_per_s_steady={res.edges_per_s_steady:.0f} "
+                   f"peak_device_mem_mb={mem_s} "
+                   f"best_val_f1={res.final_val_f1:.4f} "
+                   f"best_test_f1={res.final_test_f1:.4f}")
+        if cfg.save_csv:
+            _append_csv(cfg, ds, run, res)
+        results.append(res)
+
+    _summary(cfg, results, log_fn)
+    return results
+
+
+def _device_peak_mem_mb(dev: torch.device) -> Optional[float]:
+    """Peak bytes allocated by PyTorch on a CUDA device, in MiB."""
+    if dev.type != "cuda":
+        return None
+    return torch.cuda.max_memory_allocated(dev) / (1024 ** 2)
+
+
+def _append_csv(cfg: Config, ds: HostDataset, run: int, res: RunResult):
+    """Results/<dataset>/<sample_perc>.csv append (main.py:295-306)."""
+    d = os.path.join(cfg.results_dir, ds.name)
+    os.makedirs(d, exist_ok=True)
+    path = os.path.join(d, f"{cfg.sample_perc}.csv")
+    exists = os.path.exists(path)
+    with open(path, "a", newline="") as f:
+        w = csv.writer(f)
+        if not exists:
+            w.writerow(["run", "iter", "he", "mode", "loss", "train_f1",
+                        "val_f1", "test_f1"])
+        w.writerow([run, res.num_iterations, ds.He, cfg.mode,
+                    res.losses[-1] if res.losses else 0.0,
+                    res.final_train_f1, res.final_val_f1, res.final_test_f1])
+
+
+def _summary(cfg: Config, results: List[RunResult], log_fn):
+    log_fn("---------------Stats-----------")
+    log_fn(f"Mean training epoch runtime: "
+           f"{np.mean([r.mean_epoch_time for r in results]):.4f}")
+    its = [r.num_iterations for r in results]
+    log_fn(f"Mean convergence number: {np.mean(its):.4f} +/- "
+           f"{np.std(its):.4f}, {its}")
+    if cfg.mode == "learned":
+        log_fn(f"EdgeMLP updated/Total GNN updates "
+               f"{np.round(np.mean([r.conditional_updates for r in results]))}"
+               f"/{np.round(np.mean([r.total_updates for r in results]))}")
+    bt = [r.best_test_f1 for r in results]
+    tv = [r.test_at_best_val for r in results]
+    ft = [r.final_test_f1 for r in results]
+    log_fn(f"Mean Std of Best Test we could do F1 Score: {np.mean(bt):.4f} "
+           f"+/- {np.std(bt):.4f}")
+    log_fn(f"Mean Std of Test at best Val F1 Score: {np.mean(tv):.4f} +/- "
+           f"{np.std(tv):.4f}")
+    log_fn(f"Mean Std of Loaded best Val model Test F1 Score: "
+           f"{np.mean(ft):.4f} +/- {np.std(ft):.4f}")
+    log_fn("-------------------------------")

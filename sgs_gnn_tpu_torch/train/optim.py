@@ -82,6 +82,22 @@ class DualOptimizer:
                  for p, m in zip(self.params, mask)])
         return self.state[grp]
 
+    def state_dict(self) -> Dict[str, dict]:
+        """The groups' Adam states (step count, moments; None outside the
+        group), for a checkpoint. Only groups that have stepped appear."""
+        return {grp: {"count": st.count, "mu": list(st.mu),
+                      "nu": list(st.nu)} for grp, st in self.state.items()}
+
+    def load_state_dict(self, state: Dict[str, dict]) -> None:
+        """Restore ``state_dict()``'s output onto the parameters' device."""
+        dev = self.params[0].device
+
+        def to(ts):
+            return [None if t is None else t.to(dev) for t in ts]
+        self.state = {grp: AdamGroupState(st["count"].to(dev), to(st["mu"]),
+                                          to(st["nu"]))
+                      for grp, st in state.items()}
+
     def _group_update(self, grp: str, grads, gate=None,
                       weight_decay: float = 0.0):
         """One Adam step of group ``grp``; returns the updates (None outside

@@ -1,6 +1,6 @@
-"""Training step of the learned mode (port of ``train/pipelines.py``:
-``make_learned_loss`` with its four pipeline branches and the shared tail,
-and ``make_train_step`` in learned mode).
+"""Training steps (port of ``train/pipelines.py``: ``make_learned_loss``
+with its four pipeline branches and the shared tail, ``make_baseline_loss``
+for the random, edge and full modes, and ``make_train_step``).
 
 One step, on one cluster partition. First, with ``conditional`` or
 ``sparse_edge_mlp``, a degree-prior random q-subgraph
@@ -39,8 +39,14 @@ them in place, and the step takes ``(graph, epoch, generator)``: every
 random draw of the step comes from that ``torch.Generator``, on the
 graph's device. Nothing in the step reads a value back to the host. The
 JAX package's TPU gates on this path (``dense_subgraph``, the h width
-limit of the tile kernel, fused-head VMEM budgets) are not copied. The
-baseline modes raise ``NotImplementedError`` (ROADMAP.md).
+limit of the tile kernel, fused-head VMEM budgets) are not copied.
+
+The baseline modes (random, edge, full) run one backbone forward on a
+uniform q-subset (``random_edges``), a degree-prior q-subset
+(``sample_prior_edges``) or the whole graph, then masked CE and the third
+Adam group with weight decay (``DualOptimizer.step_all``). ``force_small``
+(the driver's pick for a padded batch whose valid edge count is <= q)
+and E <= q take the whole graph in every mode.
 """
 from __future__ import annotations
 
@@ -51,8 +57,8 @@ import torch
 from ..core.config import Config
 from ..core.graph import Graph
 from ..models.scorers import draw_seed
-from ..sparsify.sampling import (sample_edges, sample_prior_edges,
-                                 temperature_at)
+from ..sparsify.sampling import (random_edges, sample_edges,
+                                 sample_prior_edges, temperature_at)
 from .losses import (assortative_bce_flags, consistency_loss,
                      masked_cross_entropy, micro_f1)
 from .optim import DualOptimizer
@@ -64,12 +70,6 @@ class StepMetrics(NamedTuple):
     conditional_update: torch.Tensor  # 1.0 if the edge scorer was updated
     learned_f1: torch.Tensor
     random_f1: torch.Tensor
-
-
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"{what}: the port carries the learned mode so far; the baseline "
-        "modes come with a later slice (ROADMAP.md)")
 
 
 def _apply_gnn(model, x, s, r, w, generator):
@@ -221,6 +221,31 @@ def make_learned_loss(cfg: Config, model, q: int):
     return loss_fn
 
 
+def make_baseline_loss(cfg: Config, model, q: int,
+                       force_small: bool = False):
+    """``loss_fn(g, generator) -> loss`` of one batch in a baseline mode:
+    one backbone forward on the mode's subgraph, masked CE (reference
+    training_hybrid.py:149-180)."""
+    mode = cfg.mode
+    if mode not in ("random", "edge", "full"):
+        raise ValueError(mode)
+
+    def loss_fn(g: Graph, generator: torch.Generator):
+        if mode == "full" or force_small or g.num_edges <= q:
+            s_s, s_r = g.senders, g.receivers
+        else:
+            if mode == "random":
+                idx = random_edges(generator, g.num_edges, q,
+                                   edge_mask=g.edge_mask)
+            else:
+                idx = sample_prior_edges(generator, g.prob, q, g.edge_mask)
+            s_s, s_r, _, _ = _aux_columns(g.edge_aux[idx])
+        out = _apply_gnn(model, g.x, s_s, s_r, None, generator)
+        return masked_cross_entropy(out, g.y, g.train_mask)
+
+    return loss_fn
+
+
 def _grads(loss, params):
     grads = torch.autograd.grad(loss, params, allow_unused=True)
     return [torch.zeros_like(p) if g is None else g
@@ -228,18 +253,34 @@ def _grads(loss, params):
 
 
 def make_train_step(cfg: Config, model, opt: DualOptimizer, q: int,
-                    max_epoch: int):
-    """``step(g, epoch, generator) -> StepMetrics``: one learned-mode update
-    of ``model``'s parameters in place. With E <= q the step trains the
+                    max_epoch: int, force_small: bool = False):
+    """``step(g, epoch, generator) -> StepMetrics``: one update of
+    ``model``'s parameters in place, in ``cfg.mode``.
+
+    Learned mode: with ``force_small`` or E <= q the step trains the
     backbone on the full graph, CE only, with the gnn group only
-    (reference training_hybrid.py:142-147)."""
+    (reference training_hybrid.py:142-147); else the pipeline's loss and
+    the gated dual update. Baseline modes: ``make_baseline_loss`` and the
+    'all' group. E is the graph's edge count, padding included, so the
+    driver passes ``force_small=True`` for a padded batch whose VALID edge
+    count is <= q (the reference's per-batch decision, made on the host)."""
     if cfg.mode != "learned":
-        raise _not_ported(f"mode={cfg.mode!r}")
+        baseline_loss = make_baseline_loss(cfg, model, q, force_small)
+
+        def baseline_step(g: Graph, epoch: int,
+                          generator: torch.Generator) -> StepMetrics:
+            loss = baseline_loss(g, generator)
+            opt.step_all(_grads(loss, opt.params))
+            zero = torch.zeros((), device=g.x.device)
+            return StepMetrics(loss.detach(), temperature_at(
+                epoch, max_epoch, cfg.t_init, cfg.t_min), zero, zero, zero)
+
+        return baseline_step
     learned_loss = make_learned_loss(cfg, model, q)
 
     def step(g: Graph, epoch: int, generator: torch.Generator) -> StepMetrics:
         t = temperature_at(epoch, max_epoch, cfg.t_init, cfg.t_min)
-        if g.num_edges <= q:
+        if force_small or g.num_edges <= q:
             out = _apply_gnn(model, g.x, g.senders, g.receivers, None,
                              generator)
             loss = masked_cross_entropy(out, g.y, g.train_mask)

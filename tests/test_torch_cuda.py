@@ -606,3 +606,98 @@ def test_kernels_raise_on_bad_input(card):
         sp.spmm(ids, ids, None, h.half(), 4, backend="fused")
     with pytest.raises(ValueError):
         sp.spmm(ids, ids, None, h, 5, backend="fused")   # N != x rows
+
+
+# ------------------------------------------------- experiments on the card
+
+
+def _padded_partitions(card):
+    """Two partitions of a community graph padded to one shape class: the
+    small one gets ~0.9M padding edges, self-loops on the ghost node."""
+    from sgs_gnn_tpu_torch.data import (community_sbm_graph, partition,
+                                        to_undirected)
+    x, ei, y, (tr, va, te) = community_sbm_graph(
+        n=4000, num_classes=8, communities=2, deg=300, feat_dim=16, seed=1)
+    ei = to_undirected(ei)
+    part = (torch.arange(4000) >= 3200).to(torch.int32).numpy()
+    return partition.induced_subgraphs(x, ei, y, tr, va, te, part, 2,
+                                       shape_classes=1, device=card)
+
+
+def test_row_kernels_on_a_padded_partition(card):
+    """K1 and K2 on a padded partition's edge list: the receivers end in
+    one run of ~0.9M ghost-node ids (far beyond the 10,000 consecutive
+    padding ids of test_scatter_add_padding_ids)."""
+    batches = _padded_partitions(card)
+    g = min(batches, key=lambda b: int(b.edge_mask.sum()))
+    ghost = g.num_nodes - 1
+    pad = g.num_edges - int(g.edge_mask.sum())
+    assert pad > 500_000 and int((g.receivers == ghost).sum()) >= pad
+    gen = torch.Generator(device=card).manual_seed(3)
+    for ids in (g.receivers, g.senders):
+        for f in (256, 41):
+            vals = torch.randn(g.num_edges, f, generator=gen,
+                               device=card).to(torch.bfloat16)
+            _check_scatter(vals, ids, g.num_nodes)
+    w = torch.rand(g.num_edges, generator=gen, device=card)
+    out = sc.segment_sum_scalar(w, g.receivers, g.num_nodes)
+    ref = sc.segment_sum_scalar_plain(w, g.receivers, g.num_nodes)
+    assert bool(((out - ref).abs() <= _sum_tol(ref)).all())
+
+
+def test_learned_run_experiment_on_card(card, tmp_path):
+    """Two epochs of the learned hybrid_rescore experiment on 3 native
+    partitions in bf16: finite losses, F1s in [0, 1], the tile index built
+    ('auto' on the card) and every kernel of the path launched (K1-K6)."""
+    from sgs_gnn_tpu_torch.data import (HostDataset, community_sbm_graph,
+                                        degree_prior, edge_homophily,
+                                        to_undirected)
+    from sgs_gnn_tpu_torch.run import cli, driver
+    x, ei, y, (tr, va, te) = community_sbm_graph(
+        n=3000, num_classes=8, communities=3, deg=100, feat_dim=64, seed=0)
+    ei = to_undirected(ei)
+    ds = HostDataset("community", x, ei, y, tr, va, te,
+                     degree_prior(ei[0], ei[1], 3000), 8,
+                     edge_homophily(ei, y))
+    cfg = cli.config_from_args([
+        "--mode", "learned", "--pipeline", "hybrid", "--sparse_edge_mlp",
+        "true", "--dtype", "bfloat16", "--nhid", "128", "--epochs", "2",
+        "--metis_threshold", str(ds.num_edges // 3 + 1), "--stats", "true",
+        "--log", "true", "--num_samples_eval", "3", "--results_dir",
+        str(tmp_path)])
+    lines = []
+    LAUNCHES.clear()
+    (res,) = driver.run_experiment(cfg, ds, log_fn=lines.append)
+    torch.cuda.synchronize()
+    assert res.plan["partitioner"] == "native" and res.plan["parts"] == 3
+    assert all(torch.isfinite(torch.tensor(res.losses)))
+    for f in res.train_curve + res.val_curve + res.test_curve + [
+            res.final_train_f1, res.final_val_f1, res.final_test_f1]:
+        assert 0.0 <= f <= 1.0
+    assert any("tile_score_kernel=on" in ln for ln in lines), lines
+    for k in ("scatter_add", "segment_sum_scalar", "score_head_sampled",
+              "score_head_sampled_banded", "score_head_bwd",
+              "score_head_tiles"):
+        assert LAUNCHES[k] > 0, (k, dict(LAUNCHES))
+    assert res.peak_device_mem_mb > 0
+    assert (tmp_path / "community" / "0.2.csv").exists()
+
+
+@pytest.mark.quality
+def test_learned_beats_random_and_full_on_card():
+    """tests/test_quality.py's claim through the port on the card."""
+    from sgs_gnn_tpu_torch import Config
+    from sgs_gnn_tpu_torch.data import get_dataset
+    from sgs_gnn_tpu_torch.run import driver
+    cfg = Config(dataset="SyntheticSBMLow", pipeline="hybrid", GNN="GCN",
+                 edge_mlp_type="GCN", conditional=True, reg1=True,
+                 reg2=True, sample_perc=0.2, nhid=64, epochs=60, runs=1,
+                 save_csv=False, donate=False, num_samples_eval=3,
+                 convergence=0.0)
+    ds = get_dataset(cfg)
+    assert ds.He < 0.25, ds.He
+    f1 = {m: driver.run_experiment(cfg.replace(mode=m), ds,
+                                   log_fn=lambda *a: None)[0].final_test_f1
+          for m in ("learned", "random", "full")}
+    assert f1["learned"] > f1["random"] + 0.2, f1
+    assert f1["learned"] > f1["full"] + 0.1, f1

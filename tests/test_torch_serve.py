@@ -181,7 +181,7 @@ def test_port_imports_no_jax():
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
-    assert int(res.stdout.strip()) >= 27        # every submodule imported
+    assert int(res.stdout.strip()) >= 41        # every submodule imported
 
 
 def test_cuda_entry_points_raise_without_card():

@@ -370,8 +370,10 @@ def test_small_batch_step_matches_jax(monkeypatch):
     for name, p in tm.named_parameters():
         np.testing.assert_allclose(p.detach().numpy(), want[name].numpy(),
                                    rtol=1e-5, atol=1e-6, err_msg=name)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_train_step(Config(mode="random"), tm, topt, Q, 5)
+    # every mode has a step (tests/test_torch_baselines.py holds the
+    # baseline modes to the JAX package)
+    for mode in ("random", "edge", "full"):
+        assert callable(make_train_step(Config(mode=mode), tm, topt, Q, 5))
     # every pipeline of the learned mode is ported
     # (tests/test_torch_pipelines.py holds them to the JAX package)
     for pipeline in ("two_pass", "straight_through", "hybrid"):
