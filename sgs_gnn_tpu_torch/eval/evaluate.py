@@ -9,20 +9,27 @@ reference does. The random and edge modes average the logits of
 ``num_samples_eval`` uniform or degree-prior draws of q edges (unweighted);
 the full mode, ``force_small`` and E <= q run the backbone once on the
 whole graph. No new kernel: K3 scores, K1 and K2 run the backbone.
+
+``make_scan_eval_step`` runs the eval of every batch as replays of CUDA
+graphs, one per (shape class, small flag), the twin of the JAX
+``lax.scan`` eval; the sums stay on the device.
 """
 from __future__ import annotations
 
-from typing import Dict, List
+import functools
+from typing import Dict, List, Optional
 
 import torch
 
 from ..core.config import Config
 from ..core.graph import Graph
+from ..core.graphed import Graphs, ShapeClasses
 from ..sparsify.sampling import (random_edges, sample_edges,
                                  sample_prior_edges)
 from ..train.losses import micro_f1
 
 SPLITS = ("train", "val", "test")
+KEYS = tuple(f"{s}_{k}" for s in SPLITS for k in ("f1_weighted", "count"))
 
 
 def make_eval_step(cfg: Config, model, q: int, force_small: bool = False):
@@ -73,14 +80,65 @@ def make_eval_step(cfg: Config, model, q: int, force_small: bool = False):
     return eval_step
 
 
+class ScanEvalStep:
+    """The graphed eval (module ``make_scan_eval_step``)."""
+
+    def __init__(self, steps, classes: Optional[ShapeClasses] = None):
+        self.steps = steps
+        self.classes = ShapeClasses() if classes is None else classes
+        self.graphs = Graphs()
+        self.acc = None          # (6,) in KEYS order
+
+    def _body(self, step, g: Graph, generator: torch.Generator):
+        res = step(g, generator)
+        self.acc.add_(torch.stack([res[k] for k in KEYS]))
+
+    def __call__(self, batches, small_flags, generator: torch.Generator,
+                 stream_seed: int) -> Dict[str, torch.Tensor]:
+        dev = batches[0].x.device
+        if self.acc is None:
+            self.acc = torch.zeros(len(KEYS), device=dev)
+        self.acc.zero_()
+        for bi, g in enumerate(batches):
+            generator.manual_seed(stream_seed)
+            bufs, pool = self.classes.slot(g)
+            small = int(small_flags[bi])
+            self.graphs.run((bufs.key, small),
+                            functools.partial(self._body, self.steps[small],
+                                              bufs.load(g)),
+                            pool, generator)
+        return dict(zip(KEYS, self.acc.clone().unbind()))
+
+
+def make_scan_eval_step(cfg: Config, model, q: int,
+                        classes: Optional[ShapeClasses] = None
+                        ) -> ScanEvalStep:
+    """The ensemble eval of every batch as CUDA graphs: the twin of the JAX
+    ``make_scan_eval_step`` (evaluate.py:87-113), one graph per (shape
+    class, small flag) holding one batch's eval with its
+    ``num_samples_eval`` draws and the addition of its weighted F1s and
+    counts into a device sum (``core/graphed.py``: the first batch of each
+    pair runs eagerly, its graph is captured right after).
+
+    ``scan_eval(batches, small_flags, generator, stream_seed) -> {KEYS:
+    device scalar}``, the sums over the batches: the generator is
+    reseeded with ``stream_seed`` before every batch (the loop's schedule,
+    JAX's one key for every batch), and ``small_flags[bi]`` (valid edges
+    <= q) picks ``force_small``. The caller reads the sums back once
+    (``aggregate_eval``). Runs on a CUDA device (``classes`` raises on
+    another)."""
+    return ScanEvalStep({0: make_eval_step(cfg, model, q),
+                         1: make_eval_step(cfg, model, q, force_small=True)},
+                        classes)
+
+
 def aggregate_eval(batch_results: List[Dict[str, torch.Tensor]]
                    ) -> Dict[str, float]:
     """Weighted-mean F1 across partition batches; one transfer to the host
     for all of them."""
-    keys = [f"{s}_{k}" for s in SPLITS for k in ("f1_weighted", "count")]
-    table = torch.stack([torch.stack([r[k].float() for k in keys])
+    table = torch.stack([torch.stack([r[k].float() for k in KEYS])
                          for r in batch_results]).double().sum(0).tolist()
-    sums = dict(zip(keys, table))
+    sums = dict(zip(KEYS, table))
     return {f"{s}_f1": (sums[f"{s}_f1_weighted"] / sums[f"{s}_count"]
                         if sums[f"{s}_count"] > 0 else 0.0)
             for s in SPLITS}

@@ -28,7 +28,8 @@ into its product half W1a and difference half W1b at the call, so no (E, 2F)
 concat is formed.
 
 Training-mode randomness comes from an explicit ``torch.Generator``: the
-encoder's and the unfused head's dropout draw from it, and the fused
+encoder's and the unfused head's dropout draw from it (the unfused head's
+mask before the head, so ``use_remat``'s recompute reuses it), and the fused
 head's dropout seed is one int32 drawn from it on the tensors' device (the
 kernels read it there, so no step waits for the card).
 """
@@ -41,7 +42,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from .layers import GCNConv
-from ..ops.dropout import dropout
+from ..ops.dropout import apply_keep, dropout, dropout_keep
 from ..ops.edge_gather import gather_rows
 from ..ops.score_sampled import score_head_sampled
 from ..ops.score_tiles import score_head_tiles
@@ -79,17 +80,28 @@ class _ScoreHead(nn.Module):
                                   senders, receivers, drop_rate=rate,
                                   seed=seed, sorted_side=sorted_side)
 
-    def unfused(self, hu, hv, deterministic: bool = True, generator=None):
+    def unfused_keep(self, n_edges: int, device, deterministic: bool = True,
+                     generator=None):
+        """The layer dropout's kept units of ``unfused`` over ``n_edges``
+        edges, drawn from ``generator`` (None: no dropout)."""
+        if deterministic or self.dropout_prob == 0.0:
+            return None
+        return dropout_keep((n_edges, self.fc1.weight.shape[0]),
+                            self.dropout_prob, generator, device)
+
+    def unfused(self, hu, hv, keep=None):
         """The JAX ``_ScoreHead.__call__`` on gathered endpoint rows, in
         their dtype: fc1 as W1a (product half) and W1b (difference half),
-        ReLU, layer dropout from ``generator``, fc2, sigmoid in f32."""
+        ReLU, layer dropout on the units ``keep`` holds (``unfused_keep``),
+        fc2, sigmoid in f32."""
         f = hu.shape[1]
         w1 = self.fc1.weight.to(hu.dtype)
         z = (nn.functional.linear(hu * hv, w1[:, :f])
              + nn.functional.linear(hu - hv, w1[:, f:],
                                     self.fc1.bias.to(hu.dtype)))
-        z = dropout(torch.relu(z), self.dropout_prob, generator,
-                    training=not deterministic)
+        z = torch.relu(z)
+        if keep is not None:
+            z = apply_keep(z, keep, self.dropout_prob)
         logit = nn.functional.linear(z, self.fc2.weight.to(z.dtype),
                                      self.fc2.bias.to(z.dtype))
         return torch.sigmoid(logit.float()).squeeze(-1)
@@ -109,28 +121,6 @@ def draw_seed(generator, device):
     JAX scorer)."""
     return torch.randint(0, 2 ** 31 - 1, (1,), generator=generator,
                          device=device, dtype=torch.int32)
-
-
-def _checkpointed(fn, h, generator):
-    """``fn(h, generator)`` under ``torch.utils.checkpoint``. The checkpoint
-    restores only the default generators before its recompute, so the
-    recompute in the backward draws from a fresh generator set to
-    ``generator``'s state at the forward: the same dropout mask, and
-    ``generator`` itself is not rewound."""
-    if generator is None:
-        return checkpoint(fn, h, None, use_reentrant=False)
-    state = generator.get_state()
-    calls = []
-
-    def run(h_):
-        gen = generator
-        if calls:                      # the recompute
-            gen = torch.Generator(device=generator.device)
-            gen.set_state(state)
-        calls.append(None)
-        return fn(h_, gen)
-
-    return checkpoint(run, h, use_reentrant=False, preserve_rng_state=False)
 
 
 class EdgeProbGCN(nn.Module):
@@ -168,14 +158,21 @@ class EdgeProbGCN(nn.Module):
             return self.head(h, senders, receivers, deterministic,
                              sorted_side, generator)
 
-        def score(h_, gen):
+        # the dropout mask is drawn before the head, so the checkpoint's
+        # recompute reuses it and no generator is rewound (which a CUDA
+        # graph capture would refuse)
+        keep = self.head.unfused_keep(senders.shape[0], h.device,
+                                      deterministic, generator)
+
+        def score(h_, keep_):
             return self.head.unfused(gather_rows(h_, senders),
                                      gather_rows(h_, receivers, receiver_band),
-                                     deterministic, gen)
+                                     keep_)
 
         if use_remat:
-            return _checkpointed(score, h, generator)
-        return score(h, generator)
+            return checkpoint(score, h, keep, use_reentrant=False,
+                              preserve_rng_state=False)
+        return score(h, keep)
 
     def score_tiles(self, h, tile_ls, tile_lr, tile_su, tile_rv, t: int,
                     bk: int, deterministic: bool = True, seed=0):

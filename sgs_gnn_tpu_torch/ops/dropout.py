@@ -103,11 +103,22 @@ def keep_mask(drop: HeadDropout, e0: int, n_edges: int, hidden: int):
     return hash32_plain(drop.seed, e[:, None] * hidden + k) >= drop.thresh
 
 
+def dropout_keep(shape, rate: float, generator, device):
+    """The kept entries of a ``shape`` dropout: one uniform draw each from
+    ``generator``, kept below 1 - rate."""
+    u = torch.rand(shape, generator=generator, device=device)
+    return u < 1.0 - rate
+
+
+def apply_keep(x, keep, rate: float):
+    """Kept entries of ``x`` scaled by 1 / (1 - rate), the others 0."""
+    return torch.where(keep, x / (1.0 - rate), 0.0)
+
+
 def dropout(x, rate: float, generator, training: bool = True):
     """flax ``nn.Dropout``: keep with probability 1 - rate, scale kept
     entries by 1 / (1 - rate); the keep draws come from ``generator``."""
     if rate == 0.0 or not training:
         return x
-    keep_prob = 1.0 - rate
-    u = torch.rand(x.shape, generator=generator, device=x.device)
-    return torch.where(u < keep_prob, x / keep_prob, 0.0)
+    return apply_keep(x, dropout_keep(x.shape, rate, generator, x.device),
+                      rate)

@@ -15,19 +15,27 @@ As in the JAX package (reference main.py:16-321):
     multi-run summary;
   * checkpoint / resume of the whole training state (``run/checkpoint.py``).
 
-The epoch runs as a per-batch loop (``scan_epoch`` 'auto' and 'off' alike;
-the graphed epoch is ROADMAP.md §1 item 6). Each batch takes the sampled
-step or, when its VALID edge count is <= q, the small step
-(``force_small``); a batch without train nodes is skipped but counts in
-the loss divisor. Every batch's random draws come from one
+Each batch takes the sampled step or, when its VALID edge count is <= q,
+the small step (``force_small``); a batch without train nodes is skipped
+but counts in the loss divisor. Every batch's random draws come from one
 ``torch.Generator`` on the batch's device, reseeded from (seed, run,
 epoch * n_batches + batch + 1), the counterpart of the JAX driver's
 ``fold_in``; eval draws use 2**30 + epoch and the final eval 2**31 - 1. A
 batch's noise thus depends only on its global id, and a resumed run
 (which also replays the skipped epochs' shuffles) repeats the run it
-resumes. The loop reads the device back once per epoch (the loss and the
+resumes. The epoch reads the device back once (the loss and the
 conditional-update count) and the eval once per eval; the valid edge
 counts and train-node flags are taken once, at preparation.
+
+How an epoch runs, as the JAX driver decides its scan (driver.py:283-349):
+with ``scan_epoch='auto'``, more than one batch and a CUDA device, the
+epoch and the eval are replays of CUDA graphs (``make_scan_epoch_step``,
+``make_scan_eval_step``: one graph per (shape class, case), captured after
+the first eager step of the pair, sharing the class's input buffers and
+memory pool); else (``'off'``, one batch, or the CPU) the per-batch loop of
+eager steps. Both give the same updates from the same draws. A capture
+that fails raises. The ``[fastpath]`` lines name the route and why, and
+after each run the graphs captured and replayed.
 
 What the JAX driver has and this port does not yet carry raises
 ``NotImplementedError`` naming its ROADMAP.md item: ``data_parallel``,
@@ -47,13 +55,17 @@ import torch
 
 from ..core.config import Config
 from ..core.device import resolve_device
+from ..core import graphed
 from ..core.graph import Graph
 from ..data.partition import (induced_subgraphs, partition_nodes,
                               resolve_partitioner)
 from ..data.registry import HostDataset, get_dataset
-from ..eval import accumulate_eval_device, aggregate_eval, make_eval_step
+from ..eval import (accumulate_eval_device, aggregate_eval, make_eval_step,
+                    make_scan_eval_step)
+from ..eval.evaluate import ScanEvalStep
 from ..models import get_model
-from ..train import DualOptimizer, make_train_step
+from ..train import DualOptimizer, make_scan_epoch_step, make_train_step
+from ..train.pipelines import ScanEpochStep
 from .checkpoint import TrainState, load_checkpoint, save_checkpoint
 
 
@@ -83,6 +95,10 @@ class RunResult:
     edges_per_s_steady: float = 0.0
     peak_device_mem_mb: Optional[float] = None
     plan: dict = field(default_factory=dict)
+    # "graphed" or "loop" (``epoch_route``); with graphs, what was captured
+    # and replayed
+    epoch_route: str = ""
+    graphs: dict = field(default_factory=dict)
 
 
 def _roadmap_item(what: str, item: int):
@@ -152,9 +168,25 @@ def prepare_batches(cfg: Config, ds: HostDataset, device="cuda"):
     return batches, q, method
 
 
-def log_fastpath_status(cfg: Config, batches, device, log_fn) -> None:
+def epoch_route(cfg: Config, n_batches: int, device):
+    """("graphed" or "loop", why): the JAX driver's scan rule
+    (``scan_epoch != 'off'`` and more than one batch) where CUDA graphs
+    exist, on a CUDA device."""
+    dev = torch.device(device)
+    if cfg.scan_epoch == "off":
+        return "loop", "scan_epoch=off"
+    if n_batches <= 1:
+        return "loop", f"scan_epoch={cfg.scan_epoch} with one batch"
+    if not graphed.runs_graphs(dev):
+        return "loop", (f"scan_epoch={cfg.scan_epoch} on device={dev.type}:"
+                        " CUDA graphs need a card")
+    return "graphed", f"scan_epoch={cfg.scan_epoch}"
+
+
+def log_fastpath_status(cfg: Config, batches, device, log_fn,
+                        n_trained: int = 0) -> None:
     """Whether the tile score kernel (K6) is engaged and why not, how the
-    epoch runs, and the device."""
+    epoch runs and why, and the device."""
     g0 = batches[0]
     dev = torch.device(device)
     if not (cfg.mode == "learned" and cfg.pipeline == "hybrid"
@@ -174,8 +206,16 @@ def log_fastpath_status(cfg: Config, batches, device, log_fn) -> None:
         tile_s = (f"on (t={g0.tile_t} b={g0.tile_b} slots={slots} "
                   f"overhead={slots / max(g0.num_edges, 1):.2f}x)")
     log_fn(f"[fastpath] tile_score_kernel={tile_s}")
-    log_fn(f"[fastpath] epoch=per-batch loop (scan_epoch={cfg.scan_epoch}; "
-           "the graphed epoch is ROADMAP.md §1 item 6)")
+    route, why = epoch_route(cfg, len(batches), dev)
+    if route == "graphed":
+        shapes = sorted({g.num_edges for g in batches}, reverse=True)
+        sizes = [sum(g.num_edges == e for g in batches) for e in shapes]
+        log_fn(f"[fastpath] epoch=graphed ({why}: {len(batches)} batches, "
+               f"{n_trained} trained, shape_classes={sizes} x "
+               f"edges={shapes}; one CUDA graph per (shape class, case) of "
+               "the train step and of the eval, replayed per batch)")
+    else:
+        log_fn(f"[fastpath] epoch=per-batch loop ({why})")
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "host"
     log_fn(f"[fastpath] device={dev} ({name})")
 
@@ -211,10 +251,15 @@ def _epoch_order(shuffle_rng, class_members):
 
 
 def _train_epoch(steps, batches, order, plan, epoch, gen, seed, run):
-    """One epoch's batch loop. Enqueues work only: returns the summed
-    loss and conditional-update count as device scalars, and the last
-    temperature. ``plan[bi]`` is 0 (skip: no train nodes), 1 (small) or
-    2 (sampled)."""
+    """One epoch: the graphed epoch's replays (``steps`` a
+    ``ScanEpochStep``) or the batch loop (``steps`` {1: small, 2: sampled}
+    eager steps). Enqueues work only: returns the summed loss and
+    conditional-update count as device scalars, and the last temperature.
+    ``plan[bi]`` is 0 (skip: no train nodes), 1 (small) or 2 (sampled)."""
+    def seed_of(n):
+        return batch_seed(seed, run, n)
+    if isinstance(steps, ScanEpochStep):
+        return steps(batches, order, plan, epoch, gen, seed_of)
     dev = batches[0].x.device
     loss_acc = torch.zeros((), device=dev)
     cond_acc = torch.zeros((), device=dev)
@@ -223,7 +268,7 @@ def _train_epoch(steps, batches, order, plan, epoch, gen, seed, run):
     for bi in order:
         if plan[bi] == 0:
             continue
-        gen.manual_seed(batch_seed(seed, run, epoch * n_batches + bi + 1))
+        gen.manual_seed(seed_of(epoch * n_batches + bi + 1))
         m = steps[plan[bi]](batches[bi], epoch, gen)
         loss_acc = loss_acc + m.loss
         cond_acc = cond_acc + m.conditional_update
@@ -233,7 +278,11 @@ def _train_epoch(steps, batches, order, plan, epoch, gen, seed, run):
 
 def _evaluate(evals, batches, small, gen, stream_seed):
     """Ensemble eval of every batch on the device, each batch's draws from
-    the same seed (the JAX driver passes one key to every batch)."""
+    the same seed (the JAX driver passes one key to every batch): the
+    graphed eval's replays (``evals`` a ``ScanEvalStep``) or a loop of
+    eager eval steps ({0: big, 1: small})."""
+    if isinstance(evals, ScanEvalStep):
+        return evals(batches, small, gen, stream_seed)
     acc = None
     for bi, g in enumerate(batches):
         gen.manual_seed(stream_seed)
@@ -275,21 +324,30 @@ def run_experiment(cfg: Config, ds: Optional[HostDataset] = None,
                f"big={batch_plan['big']} small={batch_plan['small']} "
                f"skipped={batch_plan['skipped']} "
                f"valid_edges={batch_plan['valid_edges']}")
-        log_fastpath_status(cfg, batches, dev, log_fn)
+        log_fastpath_status(cfg, batches, dev, log_fn, n_trained)
+    route, _ = epoch_route(cfg, n_batches, dev)
 
     results: List[RunResult] = []
     for run in range(cfg.runs):
         model = init_model(cfg, batches[0].x.shape[1], ds.num_classes, run,
                            dev)
         opt = DualOptimizer.create(model, cfg.GNN, cfg.lr, cfg.weight_decay)
-        steps = {2: make_train_step(cfg, model, opt, q, cfg.epochs),
-                 1: make_train_step(cfg, model, opt, q, cfg.epochs,
-                                    force_small=True)}
-        evals = {0: make_eval_step(cfg, model, q),
-                 1: make_eval_step(cfg, model, q, force_small=True)}
+        if route == "graphed":
+            # the train and eval graphs of a class share its buffers and
+            # memory pool
+            classes = graphed.ShapeClasses()
+            steps = make_scan_epoch_step(cfg, model, opt, q, cfg.epochs,
+                                         n_batches, classes)
+            evals = make_scan_eval_step(cfg, model, q, classes)
+        else:
+            steps = {2: make_train_step(cfg, model, opt, q, cfg.epochs),
+                     1: make_train_step(cfg, model, opt, q, cfg.epochs,
+                                        force_small=True)}
+            evals = {0: make_eval_step(cfg, model, q),
+                     1: make_eval_step(cfg, model, q, force_small=True)}
         gen = torch.Generator(device=dev)
 
-        res = RunResult(plan=batch_plan)
+        res = RunResult(plan=batch_plan, epoch_route=route)
         best_state = None
         best_temp = 0.0
         epoch_times = res.epoch_times
@@ -402,6 +460,15 @@ def run_experiment(cfg: Config, ds: Optional[HostDataset] = None,
         res.final_train_f1 = agg["train_f1"]
         res.final_val_f1 = agg["val_f1"]
         res.final_test_f1 = agg["test_f1"]
+        if route == "graphed":
+            res.graphs = dict(shape_classes=len(classes),
+                              train_graphs=len(steps.graphs),
+                              eval_graphs=len(evals.graphs),
+                              train_replays=steps.graphs.replays,
+                              eval_replays=evals.graphs.replays)
+            if cfg.log:
+                log_fn(f"[fastpath] graphs run={run}: " + " ".join(
+                    f"{k}={v}" for k, v in res.graphs.items()))
 
         log_fn(f"Run: {run}")
         log_fn(f"Mean epoch time of run {res.mean_epoch_time:.4f}")

@@ -9,15 +9,27 @@
 Both run without autograd and in the model's evaluation semantics (no
 dropout). Where JAX takes a PRNG key they take a ``torch.Generator`` on the
 graph's device; the model and the graph must be on the same device.
+
+On a CUDA device each call replays a CUDA graph, as JAX replays the jitted
+call: one graph per graph shape, captured right after the first call with
+that shape runs eagerly (``core/graphed.py``). The graph's tensors are
+copied into the shape's input buffers first, the draws are those the
+eager call would make with the caller's generator, which advances by the
+same amount (a new generator on every call replays the same graph), and
+the outputs are copies the next call does not overwrite. The graphs read the model's parameters where they
+are: change them in place (``load_state_dict`` does). The returned
+function's ``eager`` attribute is the same call without graphs.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
 
 from ..core.config import Config
 from ..core.graph import Graph
+from ..core import graphed
 from ..sparsify.sampling import sample_edges
 
 
@@ -34,6 +46,29 @@ def _score_all(model, g: Graph):
                              g.receivers, True)
 
 
+def _graphed(fn):
+    """``fn(graph, generator)``, replayed from CUDA graphs on a CUDA
+    device (module docstring); ``.graphs`` holds them, ``.eager`` is
+    ``fn``."""
+    classes, graphs = graphed.ShapeClasses(), graphed.Graphs()
+
+    def call(g: Graph, generator: torch.Generator):
+        if not graphed.runs_graphs(g.x.device):
+            return fn(g, generator)
+        bufs, pool = classes.slot(g)
+        replay = bufs.key in graphs.by_key
+        out = graphs.run(bufs.key, functools.partial(fn, bufs.load(g)), pool,
+                         generator)
+        if replay:     # the static outputs: the caller gets copies
+            clones = [t.clone() for t in out]
+            out = (type(out)(*clones) if hasattr(out, "_fields")
+                   else tuple(clones))
+        return out
+
+    call.graphs, call.eager = graphs, fn
+    return call
+
+
 def make_sparsifier(cfg: Config, model, q: int):
     """Returns ``sparsify(graph, generator) -> SparsifiedGraph``."""
 
@@ -47,7 +82,7 @@ def make_sparsifier(cfg: Config, model, q: int):
                                receivers=g.receivers[idx], weights=w,
                                edge_ids=idx, probs=probs)
 
-    return sparsify
+    return _graphed(sparsify)
 
 
 def make_predictor(cfg: Config, model, q: int):
@@ -73,4 +108,4 @@ def make_predictor(cfg: Config, model, q: int):
         logits = total / n_draws
         return logits, torch.argmax(logits, dim=-1)
 
-    return predict
+    return _graphed(predict)

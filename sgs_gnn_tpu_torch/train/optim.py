@@ -18,6 +18,13 @@ an ungated group adds its update as it is, with no host value copied to
 the card.
 Both groups' updates are computed from the same parameters and gradients
 and then added, ``p + upd_edge + upd_gnn``, in that order.
+
+Every step and ``load_state_dict`` write the state in place (the step
+count, the moments) and never rebind it, so a captured CUDA graph that
+replays the update keeps reading and writing the optimizer's tensors
+(``train/pipelines.py`` ``make_scan_epoch_step``). A group's moments are
+allocated at its first step, outside any capture: graphs are captured
+after an eager step of the same case.
 """
 from __future__ import annotations
 
@@ -89,24 +96,37 @@ class DualOptimizer:
                       "nu": list(st.nu)} for grp, st in self.state.items()}
 
     def load_state_dict(self, state: Dict[str, dict]) -> None:
-        """Restore ``state_dict()``'s output onto the parameters' device."""
-        dev = self.params[0].device
-
-        def to(ts):
-            return [None if t is None else t.to(dev) for t in ts]
-        self.state = {grp: AdamGroupState(st["count"].to(dev), to(st["mu"]),
-                                          to(st["nu"]))
-                      for grp, st in state.items()}
+        """Restore ``state_dict()``'s output onto the parameters' device,
+        copied into the groups' existing tensors (graphs captured before the
+        load keep reading them); a group the state lacks restarts at step 0
+        with zero moments, as a group that never stepped."""
+        for grp in set(self.state) | set(state):
+            st = self._group_state(grp)
+            src = state.get(grp)
+            if src is None:
+                st.count.zero_()
+                for t in st.mu + st.nu:
+                    if t is not None:
+                        t.zero_()
+                continue
+            st.count.copy_(src["count"])
+            for dst, s in zip(st.mu + st.nu, list(src["mu"]) + list(src["nu"])):
+                if (dst is None) != (s is None):
+                    raise ValueError(f"optimizer state of group {grp!r} "
+                                     "does not match the group's parameters")
+                if dst is not None:
+                    dst.copy_(s)
 
     def _group_update(self, grp: str, grads, gate=None,
                       weight_decay: float = 0.0):
         """One Adam step of group ``grp``; returns the updates (None outside
         the group). With a ``gate`` (a bool tensor on the parameters'
         device) the state advances where it holds and the updates are zero
-        where it does not; without one the group always steps."""
+        where it does not; without one the group always steps. The count
+        and the moments are updated in place."""
         st = self._group_state(grp)
         do_f = None if gate is None else gate.to(torch.float32)
-        st.count = st.count + (1 if gate is None else gate.to(torch.int32))
+        st.count.add_(1 if gate is None else gate.to(torch.int32))
         t = torch.clamp(st.count, min=1).to(torch.float32)
         b1, b2 = self.b1, self.b2
         bc1 = 1.0 - torch.pow(b1, t)
@@ -119,15 +139,21 @@ class DualOptimizer:
                 continue
             if weight_decay:
                 g = g + weight_decay * p
-            m_new = b1 * m + (1.0 - b1) * g
-            v_new = b2 * v + (1.0 - b2) * (g * g)
-            if do_f is not None:
-                m_new = do_f * m_new + (1.0 - do_f) * m
-                v_new = do_f * v_new + (1.0 - do_f) * v
+            if do_f is None:
+                m_new = m.mul_(b1).add_((1.0 - b1) * g)
+                v_new = v.mul_(b2).add_((1.0 - b2) * (g * g))
+            else:
+                m_new = b1 * m + (1.0 - b1) * g
+                v_new = b2 * v + (1.0 - b2) * (g * g)
             upd = -self.lr * (m_new / bc1) / (torch.sqrt(v_new / bc2)
                                               + self.eps)
-            st.mu[i], st.nu[i] = m_new, v_new
-            updates.append(upd if do_f is None else do_f * upd)
+            if do_f is not None:
+                # lerp with a weight of exactly 0 or 1 returns one end bit
+                # for bit: the moments advance where the gate holds
+                m.lerp_(m_new, do_f)
+                v.lerp_(v_new, do_f)
+                upd = do_f * upd
+            updates.append(upd)
         return updates
 
     def _apply(self, *update_lists):

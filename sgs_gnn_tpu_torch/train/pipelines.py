@@ -47,15 +47,20 @@ uniform q-subset (``random_edges``), a degree-prior q-subset
 Adam group with weight decay (``DualOptimizer.step_all``). ``force_small``
 (the driver's pick for a padded batch whose valid edge count is <= q)
 and E <= q take the whole graph in every mode.
+
+``make_scan_epoch_step`` runs an epoch's steps as replays of CUDA graphs
+captured per (shape class, case), the twin of the JAX ``lax.scan`` epoch.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+import functools
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
 from ..core.config import Config
 from ..core.graph import Graph
+from ..core.graphed import Graphs, ShapeClasses
 from ..models.scorers import draw_seed
 from ..sparsify.sampling import (random_edges, sample_edges,
                                  sample_prior_edges, temperature_at)
@@ -252,6 +257,43 @@ def _grads(loss, params):
             for g, p in zip(grads, params)]
 
 
+def _step_cases(cfg: Config, model, opt: DualOptimizer, q: int):
+    """{1: small, 2: sampled}: ``case(g, generator) -> (loss, conditional
+    update, learned F1, random F1)``, device scalars, each after its
+    update of the parameters in place. Learned mode: the small case is
+    full-graph CE with the gnn group only (reference
+    training_hybrid.py:142-147), the sampled one the pipeline's loss with
+    the gated dual update. Baseline modes: ``make_baseline_loss`` with and
+    without ``force_small``, the 'all' group."""
+    if cfg.mode != "learned":
+        def baseline(force_small):
+            loss_fn = make_baseline_loss(cfg, model, q, force_small)
+
+            def case(g: Graph, generator: torch.Generator):
+                loss = loss_fn(g, generator)
+                opt.step_all(_grads(loss, opt.params))
+                zero = torch.zeros((), device=g.x.device)
+                return loss.detach(), zero, zero, zero
+            return case
+        return {1: baseline(True), 2: baseline(False)}
+
+    learned_loss = make_learned_loss(cfg, model, q)
+
+    def small(g: Graph, generator: torch.Generator):
+        out = _apply_gnn(model, g.x, g.senders, g.receivers, None, generator)
+        loss = masked_cross_entropy(out, g.y, g.train_mask)
+        opt.step_gnn_only(_grads(loss, opt.params))
+        zero = torch.zeros((), device=g.x.device)
+        return loss.detach(), zero, zero, zero
+
+    def sampled(g: Graph, generator: torch.Generator):
+        total, (gate, lf1, rf1) = learned_loss(g, generator)
+        opt.step_learned(_grads(total, opt.params), gate)
+        return total.detach(), gate.float(), lf1, rf1
+
+    return {1: small, 2: sampled}
+
+
 def make_train_step(cfg: Config, model, opt: DualOptimizer, q: int,
                     max_epoch: int, force_small: bool = False):
     """``step(g, epoch, generator) -> StepMetrics``: one update of
@@ -264,31 +306,82 @@ def make_train_step(cfg: Config, model, opt: DualOptimizer, q: int,
     'all' group. E is the graph's edge count, padding included, so the
     driver passes ``force_small=True`` for a padded batch whose VALID edge
     count is <= q (the reference's per-batch decision, made on the host)."""
-    if cfg.mode != "learned":
-        baseline_loss = make_baseline_loss(cfg, model, q, force_small)
-
-        def baseline_step(g: Graph, epoch: int,
-                          generator: torch.Generator) -> StepMetrics:
-            loss = baseline_loss(g, generator)
-            opt.step_all(_grads(loss, opt.params))
-            zero = torch.zeros((), device=g.x.device)
-            return StepMetrics(loss.detach(), temperature_at(
-                epoch, max_epoch, cfg.t_init, cfg.t_min), zero, zero, zero)
-
-        return baseline_step
-    learned_loss = make_learned_loss(cfg, model, q)
+    cases = _step_cases(cfg, model, opt, q)
 
     def step(g: Graph, epoch: int, generator: torch.Generator) -> StepMetrics:
-        t = temperature_at(epoch, max_epoch, cfg.t_init, cfg.t_min)
-        if force_small or g.num_edges <= q:
-            out = _apply_gnn(model, g.x, g.senders, g.receivers, None,
-                             generator)
-            loss = masked_cross_entropy(out, g.y, g.train_mask)
-            opt.step_gnn_only(_grads(loss, opt.params))
-            zero = torch.zeros((), device=g.x.device)
-            return StepMetrics(loss.detach(), t, zero, zero, zero)
-        total, (gate, lf1, rf1) = learned_loss(g, generator)
-        opt.step_learned(_grads(total, opt.params), gate)
-        return StepMetrics(total.detach(), t, gate.float(), lf1, rf1)
+        small = force_small or (cfg.mode == "learned" and g.num_edges <= q)
+        loss, cond, lf1, rf1 = cases[1 if small else 2](g, generator)
+        return StepMetrics(loss, temperature_at(epoch, max_epoch, cfg.t_init,
+                                                cfg.t_min), cond, lf1, rf1)
 
     return step
+
+
+class ScanEpochStep:
+    """The graphed epoch (module ``make_scan_epoch_step``)."""
+
+    def __init__(self, cases, temperature_of, n_batches: int,
+                 classes: Optional[ShapeClasses] = None):
+        self.cases = cases
+        self.temperature_of = temperature_of
+        self.n_batches = n_batches
+        self.classes = ShapeClasses() if classes is None else classes
+        self.graphs = Graphs()
+        self.acc = None            # (2,): summed loss, gate count
+
+    def _body(self, case, g: Graph, generator: torch.Generator):
+        loss, cond, _, _ = case(g, generator)
+        self.acc.add_(torch.stack([loss, cond]))
+
+    def __call__(self, batches, order, actions, epoch: int,
+                 generator: torch.Generator, seed_of: Callable[[int], int]):
+        dev = batches[0].x.device
+        if self.acc is None:
+            self.acc = torch.zeros(2, device=dev)
+        self.acc.zero_()
+        temperature = 1.0
+        for bi in order:
+            action = actions[bi]
+            if action == 0:
+                continue
+            temperature = self.temperature_of(epoch)
+            generator.manual_seed(seed_of(epoch * self.n_batches + bi + 1))
+            bufs, pool = self.classes.slot(batches[bi])
+            g = bufs.load(batches[bi])
+            self.graphs.run((bufs.key, action),
+                            functools.partial(self._body, self.cases[action],
+                                              g),
+                            pool, generator)
+        return self.acc[0], self.acc[1], temperature
+
+
+def make_scan_epoch_step(cfg: Config, model, opt: DualOptimizer, q: int,
+                         max_epoch: int, n_batches: int,
+                         classes: Optional[ShapeClasses] = None
+                         ) -> ScanEpochStep:
+    """The whole epoch's training as CUDA graphs: the twin of the JAX
+    ``make_scan_epoch_step``, whose ``lax.scan`` runs the per-batch loop's
+    updates in one dispatch (pipelines.py:372-480).
+
+    One graph per (shape class, case) holds the forward, the backward and
+    the ``DualOptimizer`` update of one batch (``core/graphed.py``). The
+    cases are JAX's action table: 0 skip (no train nodes: no graph, no
+    replay), 1 small (valid edges <= q), 2 sampled; a class's graphs
+    share its input buffers and memory pool (``classes``, which the eval's
+    graphs may share). The first batch of each (class, case) runs eagerly,
+    as its own step, and the graph is captured right after it; every later
+    batch of the pair is copied into the class's buffers and replayed.
+
+    ``epoch_step(batches, order, actions, epoch, generator, seed_of) ->
+    (loss_sum, cond_sum, temperature)``: the sums are device scalars (views,
+    valid until the next call), the temperature the host schedule's value
+    (1.0 when every batch is skipped, as the loop): ``order`` the epoch's global batch ids, ``actions`` the
+    table by batch id, and before batch ``bi`` the generator is reseeded
+    with ``seed_of(epoch * n_batches + bi + 1)``, the per-batch loop's
+    schedule. So the same order, the same per-batch draws and one update
+    per batch as the loop (the JAX docstring): a graphed epoch equals the
+    eager one up to the order of f32 atomics. Runs on a CUDA device (``classes`` raises on another)."""
+    return ScanEpochStep(
+        _step_cases(cfg, model, opt, q),
+        lambda epoch: temperature_at(epoch, max_epoch, cfg.t_init, cfg.t_min),
+        n_batches, classes)
