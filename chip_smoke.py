@@ -26,15 +26,18 @@ Phases, each printing one JSON line:
               version draw the same mask), the sorted scatter K7 (with a
               ragged E, a band too narrow and padding ids) and the fused
               SpMM K8 (F=256 and 41, weighted and not, the receiver-sorted
-              edge list and its reversal): error against the stated
+              edge list and its reversal, bf16 on the tile route; the
+              coalesced list; f32 on the gather route; each with its route,
+              the binning's own device time, torch.sparse.mm's device time
+              and whether K8's is below it): error against the stated
               tolerance, and times (CUDA events over back-to-back wrapper
               calls) of the kernel, the plain version and one PyTorch
               library call of the same work where one exists, the kernel's
               own device time from torch.profiler (K5: per kernel), beside
               the kernel's bound on an H100 SXM.
   3. fused_spmm  GCNConv(backend="fused") forward + backward at the
-              scorer's and the backbone's widths, launch-counted, against
-              backend="auto" (outputs and gradients).
+              scorer's and the backbone's widths, launch-counted (K8's
+              routes too), against backend="auto" (outputs and gradients).
   4. serve    sparsify + predict (11 draws) at the bench partition's full
               width (N=2048, E=1M, 602 features, nhid 256, 41 classes,
               q=200k, bf16) with random weights from a seed; launch counts of
@@ -148,8 +151,11 @@ KERNEL_FUNCS = {
     "score_head_bwd": HEAD_BWD_KERNELS,
     "score_head_tiles": (HEAD_MMA_KERNEL,),
     "scatter_add_sorted": ("scatter_sorted_kernel",),
-    "spmm_fused": ("spmm_kernel",),
+    # the gather route; the tile route's binning (count, scatter) and tiles
+    "spmm_fused": ("spmm_kernel", "spmm_bin_count_kernel",
+                   "spmm_bin_scatter_kernel", "spmm_tile_kernel"),
 }
+SPMM_BIN_FUNCS = ("spmm_bin_count_kernel", "spmm_bin_scatter_kernel")
 # The learned pipelines, each with bench.py's flags, and the launches of one
 # step (conditional, sparse_edge_mlp, reg1, reg2). In every pipeline K1
 # runs once in each GCN layer's SpMM and once in each backward of one that
@@ -451,17 +457,20 @@ def _sass_counts(lib, marker):
 
 
 def phase_sass(torch):
-    """The tensor-core head kernels as built (the forward's and K5's):
-    registers, spills and stack from ptxas, their dynamic shared memory,
-    and the count of tensor-core instructions in their SASS; fails if one
-    of them has none."""
+    """The tensor-core kernels as built (the head's forward and K5's, K8's
+    tile kernel at each width): registers, spills and stack from ptxas,
+    their dynamic shared memory, and the count of tensor-core instructions
+    in their SASS; fails if one of them has none."""
     from sgs_gnn_tpu_torch.ops import _build, head_mma
+    sp = importlib.import_module("sgs_gnn_tpu_torch.ops.spmm")
     lib = _build.build()
     log = Path(f"{lib}.log")
     text = log.read_text() if log.exists() else ""
-    smem = dict(head_mma.bwd_smem_bytes(NHID), fwd=head_mma.SMEM_BYTES)
+    smem = dict(head_mma.bwd_smem_bytes(NHID), fwd=head_mma.SMEM_BYTES,
+                spmm={w: sp.tile_smem(w) for w in sp.WIDTHS})
     for marker, smem_key, want in ((HEAD_MMA_KERNEL, "fwd", 2),) + tuple(
-            (k, k.split("_")[3], 1) for k in HEAD_BWD_KERNELS):
+            (k, k.split("_")[3], 1) for k in HEAD_BWD_KERNELS) + (
+            ("spmm_tile_kernel", "spmm", len(sp.WIDTHS)),):
         ptxas = _ptxas_info(text, marker)
         counts = _sass_counts(lib, marker)
         emit("sass", kernels=marker, ptxas=ptxas,
@@ -905,9 +914,10 @@ def phase_sparse_kernels(torch, g, results):
     results["scatter_add_sorted"] = dict(cases[0], cases=cases)
 
     # K8: the whole receiver-sorted edge list and its reversal (the
-    # backward's, receivers unsorted), F = nhid and classes. The library's
-    # yardstick does the same work: torch.sparse.mm of a CSR that holds
-    # K8's E nonzeros as they are (duplicate (receiver, sender) pairs kept;
+    # backward's, receivers unsorted), F = nhid and classes, bf16 (the tile
+    # route), and f32 (the gather route, by dtype). The library's yardstick
+    # does the same work: torch.sparse.mm of a CSR that holds K8's E
+    # nonzeros as they are (duplicate (receiver, sender) pairs kept;
     # weights rounded to x's type, as K8 rounds them), built outside the
     # timed region
     def csr(s, r, w, dtype):
@@ -920,52 +930,104 @@ def phase_sparse_kernels(torch, g, results):
             (N_NODES, N_NODES))
 
     cases = []
-    for f in (NHID, CLASSES):
-        x = torch.randn(N_NODES, f, generator=gen, device=dev).to(
-            torch.bfloat16)
+    sorted_ms = {}
+    for f, dtype in ((NHID, torch.bfloat16), (CLASSES, torch.bfloat16),
+                     (NHID, torch.float32)):
+        x = torch.randn(N_NODES, f, generator=gen, device=dev).to(dtype)
         xf = x.float()
         for weighted in (False, True):
+            if dtype == torch.float32 and weighted:
+                continue
             w = (torch.rand(N_EDGES, generator=gen, device=dev) if weighted
                  else torch.ones(N_EDGES, device=dev))
             for order, s, r in (("receiver-sorted", g.senders, g.receivers),
                                 ("reversed", g.receivers, g.senders)):
+                if dtype == torch.float32 and order == "reversed":
+                    continue
                 kind = "weighted" if weighted else "unweighted"
-                case = f"E=1M F={f} bf16 {kind} {order}"
-                out = sp._spmm_fused(s, r, w, x, N_NODES)
-                ref = sp.spmm_fused_plain(s, r, w, x, N_NODES)
-                tol = sum_tolerance(sp.spmm_fused_plain(s, r, w, x.abs(),
-                                                        N_NODES))
-                err = (out - ref).abs()
-                check(bool((err <= tol).all()), f"spmm_fused {case}: error "
-                      f"{float(err.max())} above tolerance")
+                name = "bf16" if dtype == torch.bfloat16 else "f32"
+                case = f"E=1M F={f} {name} {kind} {order}"
+                k8 = _spmm_case(torch, sp, s, r, w, x, case)
                 a_w = csr(s, r, w, x.dtype)
-                lib_err = float((torch.sparse.mm(a_w, xf) - ref).abs().max())
+                lib_err = float((torch.sparse.mm(a_w, xf)
+                                 - sp.spmm_fused_plain(s, r, w, x, N_NODES))
+                                .abs().max())
                 w_auto = w if weighted else None
-                nbytes = 12 * N_EDGES + N_NODES * f * (2 + 4)
                 cases.append(dict(
-                    case=case, max_abs_err=float(err.max()),
-                    tolerance="1e-5 * sum|w x| per row + 1e-6 (f32 sums "
-                              "reordered by atomics)",
-                    **timed(torch, "spmm_fused",
-                            lambda: sp._spmm_fused(s, r, w, x, N_NODES)),
+                    case=case, **k8,
                     plain_ms=cuda_ms(torch, lambda: sp.spmm_fused_plain(
                         s, r, w, x, N_NODES), iters=5),
                     library_ms=cuda_ms(torch, lambda: torch.sparse.mm(a_w,
                                                                       xf)),
+                    library_device_ms=device_ms(
+                        torch, lambda: torch.sparse.mm(a_w, xf), ("",))[0],
                     library="torch.sparse.mm of A_w as CSR (f32) with K8's "
                             "E nonzeros (duplicates kept) by x (f32)",
                     library_max_abs_err=lib_err,
                     auto_route_ms=cuda_ms(torch, lambda: sp.spmm(
-                        s, r, w_auto, x, N_NODES)),
-                    bound_ms=max(nbytes / HBM_BPS,
-                                 2 * N_EDGES * f / F32_FLOPS) * 1e3,
-                    bound_by="operations"))
-                if f == NHID and not weighted and order == "receiver-sorted":
-                    cases[-1]["coalesced"] = _spmm_coalesced(
-                        torch, sp, s, r, w, x, csr)
-                emit("kernel", name="spmm_fused", **cases[-1])
+                        s, r, w_auto, x, N_NODES))))
+                k = cases[-1]
+                k["faster_than_library"] = \
+                    k["device_ms"] < k["library_device_ms"]
+                if order == "receiver-sorted":
+                    sorted_ms[f, name, kind] = k["device_ms"]
+                else:
+                    k["over_sorted"] = k["device_ms"] / sorted_ms[f, name,
+                                                                  kind]
+                if f == NHID and not weighted and name == "bf16" \
+                        and order == "receiver-sorted":
+                    k["coalesced"] = _spmm_coalesced(torch, sp, s, r, w, x,
+                                                     csr)
+                if name == "bf16":
+                    check(k["route"] == "tiles", f"spmm_fused {case}: route "
+                          f"{k['route']}, expected tiles")
+                else:
+                    check(k["route"] == "gather", f"spmm_fused {case}: "
+                          f"route {k['route']}, expected gather (f32)")
+                emit("kernel", name="spmm_fused", **k)
     # the main case: the scorer layer's forward (F = nhid, unweighted)
     results["spmm_fused"] = dict(cases[0], cases=cases)
+
+
+def _spmm_case(torch, sp, s, r, w, x, case):
+    """One K8 case: its route (counted by the wrapper), the error against
+    the plain version (checked), CUDA-event and profiler times, the
+    binning's own device time, and the bound: on the tile route the bytes
+    12E + N*F*(itemsize + 4) at 3.35 TB/s (the 2EF tensor-core operations
+    take less), on the gather route 2EF f32 operations at 67 TFLOP/s; the
+    f32-operations count for every route beside it, for comparison with
+    the gather kernel's bound."""
+    from sgs_gnn_tpu_torch.ops._build import ROUTES
+    before = dict(ROUTES)
+    out = sp._spmm_fused(s, r, w, x, N_NODES)
+    route = next(rt for (kn, rt), v in ROUTES.items()
+                 if kn == "spmm_fused" and v > before.get((kn, rt), 0))
+    ref = sp.spmm_fused_plain(s, r, w, x, N_NODES)
+    tol = sum_tolerance(sp.spmm_fused_plain(s, r, w, x.abs(), N_NODES))
+    err = (out - ref).abs()
+    check(bool((err <= tol).all()), f"spmm_fused {case}: error "
+          f"{float(err.max())} above tolerance")
+    e, f = s.shape[0], x.shape[1]
+    dev_ms, by_name = device_ms(torch, lambda: sp._spmm_fused(
+        s, r, w, x, N_NODES), KERNEL_FUNCS["spmm_fused"])
+    nbytes = 12 * e + N_NODES * f * (x.element_size() + 4)
+    old_bound = 2 * e * f / F32_FLOPS * 1e3
+    if route == "tiles":
+        bound = max(nbytes / HBM_BPS, 2 * e * f / BF16_FLOPS) * 1e3
+        bound_by = "bytes"
+    else:
+        bound = max(nbytes / HBM_BPS * 1e3, old_bound)
+        bound_by = "operations"
+    return dict(
+        route=route, max_abs_err=float(err.max()),
+        tolerance="1e-5 * sum|w x| per row + 1e-6 (f32 sums reordered; "
+                  "the tile route's hi + lo weights within 2^-17)",
+        ms=cuda_ms(torch, lambda: sp._spmm_fused(s, r, w, x, N_NODES)),
+        device_ms=dev_ms, device_ms_by_kernel=by_name,
+        binning_device_ms=sum(v for k, v in by_name.items()
+                              if k in SPMM_BIN_FUNCS),
+        bound_ms=bound, bound_by=bound_by,
+        bound_ms_f32_operations=old_bound)
 
 
 def _spmm_coalesced(torch, sp, s, r, w, x, csr):
@@ -976,17 +1038,15 @@ def _spmm_coalesced(torch, sp, s, r, w, x, csr):
     wu = torch.zeros(pairs.shape[0], device=w.device).index_add_(0, inv, w)
     ru = (pairs // N_NODES).int()
     su = (pairs % N_NODES).int()
-    ref = sp.spmm_fused_plain(su, ru, wu, x, N_NODES)
-    err = (sp._spmm_fused(su, ru, wu, x, N_NODES) - ref).abs()
-    tol = sum_tolerance(sp.spmm_fused_plain(su, ru, wu, x.abs(), N_NODES))
-    check(bool((err <= tol).all()), f"spmm_fused coalesced: error "
-          f"{float(err.max())} above tolerance")
+    k8 = _spmm_case(torch, sp, su, ru, wu, x, "coalesced")
     a_u = csr(su, ru, wu, x.dtype)
     xf = x.float()
-    return dict(pairs=int(pairs.shape[0]), max_abs_err=float(err.max()),
-                ms=cuda_ms(torch, lambda: sp._spmm_fused(su, ru, wu, x,
-                                                         N_NODES)),
-                library_ms=cuda_ms(torch, lambda: torch.sparse.mm(a_u, xf)))
+    k8.update(pairs=int(pairs.shape[0]),
+              library_ms=cuda_ms(torch, lambda: torch.sparse.mm(a_u, xf)),
+              library_device_ms=device_ms(
+                  torch, lambda: torch.sparse.mm(a_u, xf), ("",))[0])
+    k8["faster_than_library"] = k8["device_ms"] < k8["library_device_ms"]
+    return k8
 
 
 def phase_serve(torch, arrays):
@@ -1176,7 +1236,7 @@ def phase_fused_spmm(torch, g):
     then the same layers with backend="auto": outputs and gradients
     compared. Returns the fused run's launches."""
     from sgs_gnn_tpu_torch.models.layers import GCNConv
-    from sgs_gnn_tpu_torch.ops._build import LAUNCHES
+    from sgs_gnn_tpu_torch.ops._build import LAUNCHES, ROUTES
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(14)
     sub = torch.randperm(N_EDGES, generator=gen, device=dev)[:Q].sort().values
@@ -1205,12 +1265,19 @@ def phase_fused_spmm(torch, g):
 
     torch.cuda.synchronize()
     LAUNCHES.clear()
+    ROUTES.clear()
     with no_host_sync(torch):
         fused = run()
     torch.cuda.synchronize()
     launches = dict(LAUNCHES)
+    routes = {f"{k} {r}": v for (k, r), v in ROUTES.items()
+              if k == "spmm_fused"}
     check(launches == FUSED_LAUNCHES,
           f"fused SpMM launch counts {launches}, expected {FUSED_LAUNCHES}")
+    # both layers' forward and dx on the tile route (E=1M and q=200k over
+    # 1024 tiles: 977 and 195 edges a tile)
+    check(routes == {"spmm_fused tiles": FUSED_LAUNCHES["spmm_fused"]},
+          f"fused SpMM routes {routes}")
     fused_ms = cuda_ms(torch, run, iters=5, warmup=1)
     for layer in layers:
         layer.backend = "auto"
@@ -1223,7 +1290,7 @@ def phase_fused_spmm(torch, g):
            for ns, fa, aa in zip(names, fused, auto)]
     emit("fused_spmm", cases=["scorer gcn1 602->256 E=1M unweighted",
                               "backbone gcn2 256->41 q=200k weighted"],
-         launches=launches, rel_l2_fused_vs_auto=rel,
+         launches=launches, routes=routes, rel_l2_fused_vs_auto=rel,
          tolerance=f"relative L2 {FUSED_REL_TOL} per tensor (bf16: the auto "
                    "route rounds each product w*x to bf16, K8 keeps f32)",
          fused_fwd_bwd_ms=fused_ms, auto_fwd_bwd_ms=auto_ms)
@@ -1876,9 +1943,9 @@ KERNELS = {
                    "sgs_gnn_tpu/ops/spmm_pallas.py:42"),
 }
 # the bf16 head (csrc/head_mma.cuh: rows 3, 4 and 6; csrc/head_bwd_mma.cuh:
-# row 5)
+# row 5) and K8's tile route (row 8, its main case)
 TENSOR_CORE = ("score_head_sampled", "score_head_sampled_banded",
-               "score_head_bwd", "score_head_tiles")
+               "score_head_bwd", "score_head_tiles", "spmm_fused")
 
 
 def main():

@@ -17,7 +17,8 @@ resets it (``LAUNCHES.clear()``) and reads it afterwards to show that a path
 went through the kernels. ``ROUTES`` counts them per (kernel, route) where a
 wrapper dispatches one kernel name to several routes (K1: "slab" or
 "direct", K2: "shared" or "global", by ``ops/scatter.py``'s plans; K5:
-"tensor_cores" for bf16 h, "cuda_cores" for f32). What a kernel picks from
+"tensor_cores" for bf16 h, "cuda_cores" for f32; K8: "tiles" or "gather",
+by ``ops/spmm.py`` ``spmm_plan``). What a kernel picks from
 the data, not the host, it counts on the card itself (K1's slab chunks per
 mode: ``ops/scatter.py`` ``slab_chunk_modes``).
 """
@@ -64,7 +65,7 @@ _SIGNATURES = {
                              _P],
     "sgs_dropout_bits": [_P, _P, _P, _L, _P],
     "sgs_scatter_add_sorted": [_P, _I, _P, _P, _L, _I, _I, _I, _I, _I, _P],
-    "sgs_spmm_fused": [_P, _P, _P, _P, _I, _P, _L, _I, _I, _P],
+    "sgs_spmm_fused": [_P, _P, _P, _P, _I, _P, _L, _I, _I, _I, _I, _P, _P],
 }
 
 

@@ -25,16 +25,132 @@ reversed edges with ``g`` cast to ``x.dtype``, dw the SDDMM in plain
 torch, as JAX leaves it to XLA. The JAX route's fall-back to XLA when x and
 the accumulator overflow VMEM (``fits_vmem``) is a TPU memory rule and is
 not copied.
+
+K8 has two routes, picked by :func:`spmm_plan` from the shapes and x's type
+alone (never from tensor values, so a call needs no host read and can be
+captured in a CUDA graph). "tiles" (bf16 x on graphs dense as matrices,
+the cluster partitions the TPU kernel was written for): the edges are
+counting-sorted on the card into 64 x 64 (receiver block, sender block)
+tiles, each tile is densified in shared memory and multiplied by x's 64
+sender rows on the tensor cores, the f32 sum of a tile's duplicate pairs
+split into bf16 hi + lo. :func:`spmm_bin_plain` and
+:func:`spmm_tiles_plain` follow that schedule in plain torch (the CPU tests
+hold them to the plain version and to the Pallas kernel). "gather" (f32 x,
+or sparser graphs): each warp gathers whole rows for a range of edges.
 """
 from __future__ import annotations
+
+import bisect
+from typing import NamedTuple
 
 import torch
 
 from . import _build
 from .edge_gather import gather_rows
-from .scatter import rows_at, scatter_add, scatter_add_plain
+from .scatter import (H100_SMS, _sm_count, rows_at, scatter_add,
+                      scatter_add_plain)
 
 BACKENDS = ("auto", "fused")
+
+# csrc/spmm.cu geometry
+TILE = 64                  # kTileRows = kTileK: receivers and senders a tile
+PANEL_STRIDE = TILE + 4    # kPanelStride: floats per panel row
+TILE_THREADS = 256         # two warpgroups
+WINDOW = TILE_THREADS      # kWin: tile offsets a tile block holds at a time
+BIN_CHUNK = 2048           # kBinChunk: edges of one binning block
+MAX_BINS = 8192            # kMaxBins: tiles whose counts fit shared memory
+WIDTHS = (16, 32, 48, 64, 96, 128, 192, 256)   # columns of a tile block
+# The tile route needs at least this many edges per tile on average. A
+# tile's fixed work is one read of its 64 sender rows (64 x W x 2 bytes);
+# the gather route reads one row per edge (W x 2 bytes). Below 64 edges per
+# tile the tiles move more bytes than the gathers they replace.
+MIN_TILE_EDGES = 64
+GATHER_COLS = 256          # rows.cuh kRowTile: columns of a gather block
+GATHER_EDGES = 8 * 64      # kWarps * kEdgesPerWarp: edges of a gather block
+GATHER_SMEM = 8 * GATHER_COLS * 4   # static staging rows
+
+
+class SpmmPlan(NamedTuple):
+    """How ``csrc/spmm.cu`` cuts one call. Tile route: block (p, c) takes
+    the p-th of ``parts`` equal ranges of the binned edges and columns [c *
+    width, (c + 1) * width) clipped to F; the binning runs over ``bins`` =
+    ceil(N / 64)^2 tiles. Gather route: block (p, c) takes edges [p * 512,
+    (p + 1) * 512) and columns [c * 256, (c + 1) * 256)."""
+    route: str           # "tiles" or "gather"
+    width: int           # columns of a block
+    slices: int          # gridDim.y
+    parts: int           # gridDim.x
+    bins: int            # tiles (0 on the gather route)
+    smem_bytes: int      # dynamic shared memory of the tile block (gather:
+                         # its static staging)
+    bin_smem_bytes: int  # of the binning's scatter block (0 on gather)
+
+
+def tile_smem(width: int) -> int:
+    """Shared memory of a tile block (csrc/spmm.cu tile_smem): two buffers
+    of x's 64 rows of ``width`` bf16 columns, the hi and lo A images, the
+    f32 panel, the window of WINDOW + 1 tile offsets (padded)."""
+    return (2 * TILE * width * 2 + 2 * TILE * TILE * 2
+            + TILE * PANEL_STRIDE * 4 + (WINDOW + 4) * 4)
+
+
+def bin_smem(bins: int) -> int:
+    """Shared memory of a binning scatter block (csrc/spmm.cu bin_smem):
+    the chunk's counts (bins rounded up to 32: a swizzled histogram), three
+    ints per bin, a code and a tile per edge of the chunk."""
+    return 4 * (-(-bins // 32) * 32) + 12 * bins + 8 * BIN_CHUNK
+
+
+def tile_width(f: int) -> int:
+    """Columns of a tile block: F rounded up to a multiple of 16 (each of
+    the two warpgroups takes half, a wgmma width is a multiple of 8), then
+    to the next width the kernel is built for; 256 above that, in slices."""
+    f16 = -(-f // 16) * 16
+    return next((w for w in WIDTHS if w >= f16), WIDTHS[-1])
+
+
+def parts_per_sm(width: int) -> int:
+    """Tile blocks resident on one SM at ``width`` columns (registers, as
+    ptxas gave them on sm_90a: 40-55 a thread up to 64 columns, 72 at 96
+    and 128, 128 above (the launch bound); shared memory allows as many):
+    the block is latency-bound, so the grid fills them all."""
+    return 4 if width <= 64 else 3 if width <= 128 else 2
+
+
+def spmm_plan(n: int, f: int, e: int, itemsize: int,
+              sms: int = H100_SMS) -> SpmmPlan:
+    """K8's route and grid for N nodes, F columns of ``itemsize``-byte x
+    and E edges on a card of ``sms`` SMs.
+
+    "tiles" for bf16 x (itemsize 2) when ceil(N/64)^2 tiles fit the
+    binning's shared histogram (``MAX_BINS``) and the graph has at least
+    ``MIN_TILE_EDGES`` edges per tile on average; else "gather". f32 x
+    always takes "gather": the Pallas kernel multiplies f32 at
+    Precision.HIGHEST, and the tensor cores have no full-f32 product. The
+    tile route's parts fill :func:`parts_per_sm` blocks on every SM across
+    the column slices, each part at least 512 edges."""
+    sblocks = -(-n // TILE)
+    bins = sblocks * sblocks
+    if itemsize == 2 and bins <= MAX_BINS and e >= MIN_TILE_EDGES * bins:
+        width = tile_width(f)
+        slices = -(-f // width)
+        parts = max(1, min(-(-parts_per_sm(width) * sms // slices),
+                           -(-e // 512)))
+        return SpmmPlan("tiles", width, slices, parts, bins,
+                        tile_smem(width), bin_smem(bins))
+    return SpmmPlan("gather", GATHER_COLS, -(-f // GATHER_COLS),
+                    -(-e // GATHER_EDGES), 0, GATHER_SMEM, 0)
+
+
+def scratch_ints(plan: SpmmPlan, e: int) -> int:
+    """int32 scratch of the tile route (csrc/spmm.cu launch_tile_route):
+    counts, cursors, a flag, offsets (bins + 1), one 4-byte code per edge."""
+    return 3 * plan.bins + 2 + e
+
+
+def part_range(total: int, p: int, parts: int) -> tuple[int, int]:
+    """The binned edges [begin, end) of tile part ``p``."""
+    return total * p // parts, total * (p + 1) // parts
 
 
 def spmm(senders, receivers, weights, x, num_nodes: int,
@@ -62,6 +178,84 @@ def spmm_fused_plain(senders, receivers, weights, x, num_nodes: int):
     return scatter_add_plain(msgs, receivers, num_nodes)
 
 
+def spmm_bin_plain(senders, receivers, weights, num_nodes: int):
+    """The tile route's binning (csrc/spmm.cu spmm_bin_*_kernel) in plain
+    torch: the in-range edges in tile order (receiver block major, sender
+    block minor; stable within a tile, where the card's order is not
+    fixed). Returns (offsets (bins + 1,) int64, the edges' places in their
+    tiles (r % 64) * 64 + s % 64 (int64), their weights rounded to bf16 as
+    f32)."""
+    s, r = senders.long(), receivers.long()
+    keep = (s >= 0) & (s < num_nodes) & (r >= 0) & (r < num_nodes)
+    s, r, w = s[keep], r[keep], weights[keep]
+    sblocks = -(-num_nodes // TILE)
+    key = (r // TILE) * sblocks + s // TILE
+    order = torch.argsort(key, stable=True)
+    offsets = torch.zeros(sblocks * sblocks + 1, dtype=torch.int64,
+                          device=key.device)
+    offsets[1:] = torch.cumsum(torch.bincount(key, minlength=sblocks
+                                              * sblocks), 0)
+    at = ((r % TILE) * TILE + s % TILE)[order]
+    return offsets, at, w.to(torch.bfloat16).float()[order]
+
+
+def spmm_tiles_plain(senders, receivers, weights, x, num_nodes: int,
+                     plan: SpmmPlan | None = None):
+    """The tile route's schedule in plain torch, (N, F) float32: bin the
+    edges, then for each column slice and part the tiles its range touches:
+    densify the part's edges of a tile into a 64 x 64 f32 panel, split it
+    into bf16 hi and lo = bf16(panel - hi), multiply both by the tile's
+    bf16 sender rows in f32, accumulate per receiver block and add the
+    block into the output when the part leaves it (split-K)."""
+    n, f = x.shape
+    if plan is None:
+        plan = spmm_plan(n, f, senders.shape[0], 2)
+    offsets, at, wb = spmm_bin_plain(senders, receivers, weights, num_nodes)
+    off = offsets.tolist()
+    sblocks = -(-num_nodes // TILE)
+    xb = x.to(torch.bfloat16).float()
+    out = torch.zeros((n, f), dtype=torch.float32, device=x.device)
+    total = off[-1]
+
+    def flush(acc, rb, c0):
+        rows = min(TILE, n - rb * TILE)
+        out[rb * TILE:rb * TILE + rows, c0:c0 + acc.shape[1]] += acc[:rows]
+
+    for c in range(plan.slices):
+        c0 = c * plan.width
+        cols = min(plan.width, f - c0)
+        for p in range(plan.parts):
+            begin, end = part_range(total, p, plan.parts)
+            if begin >= end:
+                continue
+            t = bisect.bisect_right(off, begin) - 1
+            cur = t // sblocks
+            acc = torch.zeros((TILE, cols), dtype=torch.float32,
+                              device=x.device)
+            while t < len(off) - 1 and off[t] < end:
+                lo, hi = max(off[t], begin), min(off[t + 1], end)
+                if hi > lo:
+                    rb, sb = divmod(t, sblocks)
+                    if rb != cur:
+                        flush(acc, cur, c0)
+                        acc.zero_()
+                        cur = rb
+                    panel = torch.zeros(TILE * TILE, dtype=torch.float32,
+                                        device=x.device).index_add_(
+                        0, at[lo:hi], wb[lo:hi]).view(TILE, TILE)
+                    a_hi = panel.to(torch.bfloat16)
+                    a_lo = (panel - a_hi.float()).to(torch.bfloat16)
+                    xt = torch.zeros((TILE, cols), dtype=torch.float32,
+                                     device=x.device)
+                    rows = xb[sb * TILE:(sb + 1) * TILE, c0:c0 + cols]
+                    xt[:rows.shape[0]] = rows
+                    acc += a_hi.float() @ xt
+                    acc += a_lo.float() @ xt
+                t += 1
+            flush(acc, cur, c0)
+    return out
+
+
 def _spmm_fused(senders, receivers, weights, x, num_nodes: int):
     if x.device.type == "cpu":
         return spmm_fused_plain(senders, receivers, weights, x, num_nodes)
@@ -77,13 +271,20 @@ def _spmm_fused(senders, receivers, weights, x, num_nodes: int):
         raise ValueError(f"spmm_fused: x has {x.shape[0]} rows, "
                          f"num_nodes={num_nodes}")
     e, f = senders.shape[0], x.shape[1]
-    out = torch.zeros((num_nodes, f), dtype=torch.float32, device=x.device)
     if e == 0 or f == 0 or num_nodes == 0:
-        return out
+        return torch.zeros((num_nodes, f), dtype=torch.float32,
+                           device=x.device)
+    out = torch.empty((num_nodes, f), dtype=torch.float32, device=x.device)
+    plan = spmm_plan(num_nodes, f, e, x.element_size(),
+                     _sm_count(x.device.index))
+    tiles = plan.route == "tiles"
+    scratch = (torch.empty(scratch_ints(plan, e), dtype=torch.int32,
+                           device=x.device) if tiles else None)
     _build.call("spmm_fused", "sgs_spmm_fused", x.device, senders.data_ptr(),
                 receivers.data_ptr(), weights.data_ptr(), x.data_ptr(),
                 int(x.dtype == torch.bfloat16), out.data_ptr(), e,
-                num_nodes, f)
+                num_nodes, f, plan.width if tiles else 0, plan.parts,
+                scratch.data_ptr() if tiles else None, route=plan.route)
     return out
 
 

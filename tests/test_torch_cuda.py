@@ -7,8 +7,10 @@ multiple of the edge tile, ids out of range, N above the shared-memory
 histogram, each route of the row scatter (K1) and the degree sum (K2) with
 hub-skewed ids and long runs, N not a multiple of the tile rows, padding
 slots; for the sorted scatter a ragged E, padding ids and a band too narrow (kernel and
-plain version drop the same items); for the fused SpMM sorted and unsorted
-receivers and its backward. The head
+plain version drop the same items); for the fused SpMM both routes (tiles,
+gather) with sorted and unsorted receivers, heavy duplicates, endpoints out
+of range, an empty receiver block, no edges, its backward and a CUDA graph
+of both. The head
 kernels run with dropout: kernel and plain version draw the same mask from
 the same seed, so only the order of f32 sums (and, in bf16, the roundings
 that follow them) separates them. On the machine with the card (no JAX
@@ -312,6 +314,166 @@ def test_spmm_fused_kernel(card, dtype, f, order):
     dw_ref = torch.sum(sc.rows_at(x.detach(), s, n)
                        * sc.rows_at(cot, r, n), dim=-1).float()
     assert torch.equal(dw, dw_ref)
+
+
+def _check_spmm(s, r, w, x, n, route):
+    """One K8 call on ``route`` (launch and route counted once) against the
+    plain version."""
+    plan = sp.spmm_plan(n, x.shape[1], s.shape[0], x.element_size(),
+                        sc._sm_count(x.device.index))
+    assert plan.route == route
+    out = _one_launch("spmm_fused", route,
+                      lambda: sp._spmm_fused(s, r, w, x, n))
+    ref = sp.spmm_fused_plain(s, r, w, x, n)
+    tol = _sum_tol(sp.spmm_fused_plain(s, r, w, x.abs(), n))
+    assert out.dtype == torch.float32 and out.shape == ref.shape
+    assert bool(((out - ref).abs() <= tol).all()), float(
+        ((out - ref).abs() - tol).max())
+    return out
+
+
+# (n, e, f, dtype, route): the tile route from 64 edges per 64 x 64 tile
+# (bf16), the gather route below it and for f32 x (test_spmm_fused_kernel
+# above runs the gather route at E=50,001 too)
+SPMM_ROUTES = [(2048, 300_000, 256, torch.bfloat16, "tiles"),
+               (2048, 300_000, 41, torch.bfloat16, "tiles"),
+               (1000, 100_000, 100, torch.bfloat16, "tiles"),
+               (2048, 200_000, 602, torch.bfloat16, "tiles"),
+               (2048, 65_535, 256, torch.bfloat16, "gather"),
+               (2048, 300_000, 256, torch.float32, "gather"),
+               (2048, 300_000, 41, torch.float32, "gather")]
+
+
+@pytest.mark.parametrize("n,e,f,dtype,route", SPMM_ROUTES)
+@pytest.mark.parametrize("order", ["sorted", "reversed"])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_spmm_fused_routes(card, n, e, f, dtype, route, order, weighted):
+    g = torch.Generator(device=card).manual_seed(9)
+    s = torch.randint(0, n, (e,), generator=g, device=card,
+                      dtype=torch.int32)
+    r = torch.randint(0, n, (e,), generator=g, device=card,
+                      dtype=torch.int32).sort().values
+    if order == "reversed":
+        s, r = r, s
+    w = (torch.rand(e, generator=g, device=card) if weighted
+         else torch.ones(e, device=card))
+    x = torch.randn(n, f, generator=g, device=card).to(dtype)
+    _check_spmm(s, r, w, x, n, route)
+
+
+@pytest.mark.parametrize("case", ["one_pair_3000", "one_pair_301_ones",
+                                  "out_of_range", "empty_receiver_block",
+                                  "one_weight_not_one", "ragged_n",
+                                  "all_out"])
+@pytest.mark.parametrize("f", [41, 256])
+def test_spmm_fused_tiles_cases(card, case, f):
+    """The tile route on heavy duplicates (one pair 3000 times with a
+    weight whose sum bf16 cannot hold; 301 unit weights, counted in
+    integers), endpoints out of range, a receiver block with no edges, one
+    weight other than 1 among ones (the f32 panel), N not a multiple of 64
+    and every endpoint out of range."""
+    n, e = 2048, 200_000
+    g = torch.Generator(device=card).manual_seed(10)
+    s = torch.randint(0, n, (e,), generator=g, device=card,
+                      dtype=torch.int32)
+    r = torch.randint(0, n, (e,), generator=g, device=card,
+                      dtype=torch.int32).sort().values
+    w = torch.rand(e, generator=g, device=card)
+    if case == "one_pair_3000":
+        s[:3000], r[:3000], w[:3000] = 5, 700, 0.3
+    elif case == "one_pair_301_ones":
+        s[:301], r[:301] = 5, 700
+        w = torch.ones(e, device=card)
+    elif case == "out_of_range":
+        s[::7] = -1
+        r[::11] = n
+        s[::13] = n + 64
+    elif case == "empty_receiver_block":
+        r = torch.where((r >= 64) & (r < 128), r + 64, r)
+    elif case == "one_weight_not_one":
+        w = torch.ones(e, device=card)
+        w[e // 2] = 0.5
+    elif case == "ragged_n":
+        n = 2000
+        s, r = s % n, r % n
+    elif case == "all_out":
+        s[:] = -5
+    x = torch.randn(n, f, generator=g, device=card).to(torch.bfloat16)
+    if case.startswith("one_pair"):
+        x[5] = 1.0
+    out = _check_spmm(s, r, w, x, n, "tiles")
+    if case == "empty_receiver_block":
+        assert not bool(out[64:128].any())
+    if case == "all_out":
+        assert not bool(out.any())
+
+
+def test_spmm_fused_without_edges(card):
+    """E=0: zeros, no launch."""
+    ids = torch.zeros(0, dtype=torch.int32, device=card)
+    x = torch.randn(100, 41, device=card).to(torch.bfloat16)
+    before = dict(LAUNCHES)
+    out = sp._spmm_fused(ids, ids, torch.zeros(0, device=card), x, 100)
+    assert dict(LAUNCHES) == before
+    assert out.shape == (100, 41) and not bool(out.any())
+
+
+@pytest.mark.parametrize("f", [41, 256])
+def test_spmm_fused_captured_in_a_cuda_graph(card, f):
+    """K8's forward and backward (the tile route both ways) captured in a
+    CUDA graph without a host read, then replayed on new values written
+    into the captured inputs: equal to eager calls within the tolerance."""
+    n, e = 2048, 300_000
+    g = torch.Generator(device=card).manual_seed(11)
+    s = torch.randint(0, n, (e,), generator=g, device=card,
+                      dtype=torch.int32)
+    r = torch.randint(0, n, (e,), generator=g, device=card,
+                      dtype=torch.int32).sort().values
+    w = torch.rand(e, generator=g, device=card, requires_grad=True)
+    x = torch.randn(n, f, generator=g, device=card).to(
+        torch.bfloat16).requires_grad_()
+    cot = torch.randn(n, f, generator=g, device=card).to(torch.bfloat16)
+
+    def step():
+        out = sp.spmm(s, r, w, x, n, backend="fused")
+        return (out,) + torch.autograd.grad(out, (w, x), cot)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            static = step()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    with torch.no_grad():
+        x.copy_(torch.randn(n, f, generator=g, device=card))
+        w.copy_(torch.rand(e, generator=g, device=card))
+        cot.copy_(torch.randn(n, f, generator=g, device=card))
+    before = LAUNCHES["spmm_fused"]
+    graph.replay()
+    torch.cuda.synchronize()
+    assert LAUNCHES["spmm_fused"] == before      # a replay calls no wrapper
+    eager = step()
+    assert torch.equal(static[1], eager[1])     # dw: the SDDMM, plain torch
+    wd, xd = w.detach(), x.detach()
+    # out and dx: each within the f32 sums' tolerance and one bf16 rounding
+    # (half an ulp) of the plain version; graph and eager sum in other
+    # orders, so their bf16 results may differ by a whole ulp
+    for name, ref, tol, pair in (
+            ("out", sp.spmm_fused_plain(s, r, wd, xd, n),
+             _sum_tol(sp.spmm_fused_plain(s, r, wd, xd.abs(), n)),
+             (static[0], eager[0])),
+            ("dx", sp.spmm_fused_plain(r, s, wd, cot, n),
+             _sum_tol(sp.spmm_fused_plain(r, s, wd, cot.abs(), n)),
+             (static[2], eager[2]))):
+        for got in pair:
+            assert bool(((got.float() - ref).abs()
+                         <= tol + 2 ** -8 * ref.abs()).all()), name
 
 
 def _head(card, g, n, f, k, dtype):

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time variants of the port's row kernels on one NVIDIA card.
 
-    python3 tools/tune_row_kernels.py [--kernels k1,k2,k7,k8]
+    python3 tools/tune_row_kernels.py [--kernels k1,k2,k7,k8,k8t]
 
 K1 (``csrc/scatter.cu``) and K2 (``csrc/segment_sum.cu``) take their grid
 from the wrapper's plan, so their variants are other plans passed to the
@@ -25,10 +25,19 @@ partition of ``chip_smoke.py`` (N=2048, E=1M, receiver-sorted):
     {64, 128, 256} x the atomics of runs that cross a warp's range
     {"float4" (the source: 16-byte atomics), "scalar" (four 4-byte atomics
     per 16 bytes, the lane-strided pattern of the vector layout)};
-  * K8, E=1M, bf16 x, weighted, F=256 and 41, the receiver-sorted list and
-    its reversal: edges per warp {32, 64, 128} x the flush {"staged" (the
-    source: through shared memory, coalesced scalar atomics), "float4",
-    "scalar"}.
+  * K8's gather route, E=1M, bf16 x, weighted, F=256 and 41, the
+    receiver-sorted list and its reversal: edges per warp {32, 64, 128} x
+    the flush {"staged" (the source: through shared memory, coalesced
+    scalar atomics), "float4", "scalar"}.
+
+``--kernels k8t`` times K8's tile route on the same four cases, per kernel
+from the profiler: the source at 1-4 parts per SM (other plans), and builds
+with one piece of work taken out or changed (K8T_BUILDS: plain adds, or
+integer atomics, in place of the weighted panel's f32 shared-memory
+atomics, both giving wrong sums; no merging of a warp's duplicate places;
+binning chunks of 1024 or 4096 edges (2048 in the source); float2 in
+place of float4 flush atomics; no MMAs; no lo MMAs, or lo MMAs on every
+tile; no flush atomics), with ptxas' remarks on each build.
 
 Each variant is held against the plain version (max abs error printed).
 Prints the card's name and power limit and one JSON line per variant,
@@ -83,6 +92,29 @@ def variant(tag, source, const, value, patches=(), rows_patch=None):
         assert n, pat
     (d / source).write_text(text)
     return d / source, d / "lib.so"
+
+
+# spmm.cu's tile route built otherwise: (tag, constant, value, [(pattern,
+# replacement)])
+_PANEL_ADD = (r"atomicAdd\(cell, w\);")
+K8T_BUILDS = (
+    ("plain panel adds (wrong sums)", "kBatch", 4,
+     [(_PANEL_ADD, "*cell += w;")]),
+    ("int panel atomics (wrong sums)", "kBatch", 4,
+     [(_PANEL_ADD, "atomicAdd(reinterpret_cast<int*>(cell), "
+                   "static_cast<int>(code & 0xffff));")]),
+    ("no peer merge", "kMatchPeers", 0, []),
+    ("binning chunks of 1024 edges", "kBinPer", 4, []),
+    ("binning chunks of 4096 edges", "kBinPer", 16, []),
+    ("float2 flush", "kFlushV4", 0, []),
+    ("no MMAs", "kBatch", 4, [(r"k < kTileK / 16; \+\+k\)", "k < 0; ++k)")]),
+    ("no lo MMAs", "kBatch", 4, [(r"if \(use_lo\) \{", "if (false) {")]),
+    ("lo MMAs always", "kBatch", 4, [(r"if \(use_lo\) \{", "if (true) {")]),
+    ("no flush", "kBatch", 4,
+     [(r"(flush_rows\(const float[^{]*\{)", r"\1\n  return;")]),
+)
+TILE_FUNCS = ("spmm_bin_count_kernel", "spmm_bin_scatter_kernel",
+              "spmm_tile_kernel")
 
 
 def cuda_ms(fn, iters=20):
@@ -217,6 +249,48 @@ def k1_k2_variants(kernels, libs):
     return rows
 
 
+def k8_tile_variants(senders, receivers, w, xs, builds, stream):
+    """K8's tile route under other part counts and as built otherwise
+    (``builds``: (tag, bound entry point)) on the bench partition's edges,
+    both orders, F=256 and 41: device ms per kernel, one JSON line each."""
+    n, e = chip_smoke.N_NODES, chip_smoke.N_EDGES
+    dev = senders.device
+    lib = _build.library()
+    rows = []
+    for case, s, r in (("sorted", senders, receivers),
+                       ("reversed", receivers, senders)):
+        for f, x in xs.items():
+            plan = sp.spmm_plan(n, f, e, 2, sc._sm_count(0))
+            scratch = torch.empty(sp.scratch_ints(plan, e), dtype=torch.int32,
+                                  device=dev)
+            ref = sp.spmm_fused_plain(s, r, w, x, n)
+            per_sm = plan.parts * plan.slices / sc._sm_count(0)
+            variants = [(f"parts per SM {k}" + (" (plan)" if k == per_sm
+                                                else ""),
+                         max(1, int(plan.parts * k / per_sm)),
+                         lib.sgs_spmm_fused) for k in (1, 2, 3, 4)]
+            variants += [(tag, plan.parts, fn) for tag, fn in builds]
+            for tag, parts, fn in variants:
+                out = torch.zeros(n, f, device=dev)
+
+                def run(fn=fn, parts=parts, out=out):
+                    out.zero_()
+                    err = fn(s.data_ptr(), r.data_ptr(), w.data_ptr(),
+                             x.data_ptr(), 1, out.data_ptr(), e, n, f,
+                             plan.width, parts, scratch.data_ptr(), stream)
+                    assert err == 0, (tag, err)
+                run()
+                total, by_name = chip_smoke.device_ms(torch, run, TILE_FUNCS,
+                                                      iters=10)
+                row = dict(kernel="K8 tiles", case=f"E=1M F={f} {case}",
+                           variant=tag, parts=parts, device_ms=total,
+                           by_kernel=by_name,
+                           max_abs_err=float((out - ref).abs().max()))
+                rows.append(row)
+                print(json.dumps(row), flush=True)
+    return rows
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--kernels", default="k1,k2,k7,k8")
@@ -237,6 +311,11 @@ def main():
                      "sgs_scatter_add_sorted") + variant(
             f"k7_{items}_{mode}", "scatter_sorted.cu", "kItemsPerWarp", items,
             rows_patch=SCALAR if mode == "scalar" else None))
+    for i, (tag, const, value, patches) in enumerate(K8T_BUILDS):
+        if "k8t" not in kernels:
+            break
+        jobs.append((f"k8 tiles: {tag}", "sgs_spmm_fused")
+                    + variant(f"k8t_{i}", "spmm.cu", const, value, patches))
     for edges, mode in itertools.product((32, 64, 128),
                                          ("staged", "float4", "scalar")):
         if "k8" not in kernels:
@@ -247,11 +326,18 @@ def main():
                               () if mode == "staged" else UNSTAGED,
                               SCALAR if mode == "scalar" else None))
     nvcc = _build._nvcc()
-    flags = [f for f in _build.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
-    procs = [subprocess.Popen([nvcc, *flags, "-shared", str(src), "-o",
-                               str(lib)]) for _, _, src, lib in jobs]
-    if any(p.wait() for p in procs):
-        raise RuntimeError("a variant did not build")
+    procs = [subprocess.Popen([nvcc, *_build.NVCC_FLAGS, "-shared", str(src),
+                               "-o", str(lib)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for _, _, src, lib in jobs]
+    logs = [p.communicate()[0] for p in procs]
+    if any(p.returncode for p in procs):
+        raise RuntimeError("a variant did not build:\n" + "\n".join(logs))
+    for (tag, _, _, _), log in zip(jobs, logs):
+        # ptxas' remarks (a serialized wgmma pipeline, say) per variant
+        remarks = sorted({m for m in re.findall(r"\((C\d{4})\)", log)})
+        print(json.dumps({"variant": tag, "ptxas_remarks": remarks}),
+              flush=True)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -275,6 +361,11 @@ def main():
     xs = {f: torch.randn(n, f, generator=gen, device=dev).to(torch.bfloat16)
           for f in (256, 41)}
     stream = torch.cuda.current_stream().cuda_stream
+    if "k8t" in kernels:
+        tiles = [(tag, _bind(lib, fn_name)) for tag, fn_name, _, lib in jobs
+                 if tag.startswith("k8 tiles")]
+        results += k8_tile_variants(senders, receivers, w, xs, tiles, stream)
+        jobs = [j for j in jobs if not j[0].startswith("k8 tiles")]
     for tag, fn_name, _, lib in jobs:
         fn = _bind(lib, fn_name)
         row = dict(variant=tag)
@@ -297,7 +388,8 @@ def main():
                     def run():
                         out.zero_()
                         fn(s.data_ptr(), r.data_ptr(), w.data_ptr(),
-                           x.data_ptr(), 1, out.data_ptr(), e, n, f, stream)
+                           x.data_ptr(), 1, out.data_ptr(), e, n, f, 0, 0,
+                           None, stream)
                     run()
                     ref = sp.spmm_fused_plain(s, r, w, x, n)
                     row[f"{case} F={f} ms"] = cuda_ms(run)
