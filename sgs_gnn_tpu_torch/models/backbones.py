@@ -1,9 +1,10 @@
 """GNN backbones, each owning an edge-probability scorer (port of
-``models/backbones.py``; this slice carries the GCN backbone with the GCN
-scorer).
+``models/backbones.py``): ``GNNModel`` (GCN), ``GINModel``, ``GATModel``
+and ``ChebModel``, each with the MLP, GSAGE or GCN scorer.
 
-Submodule names follow the JAX tree (``gcn1``/``gcn2``/``edge_prob_mlp``):
-the dual optimizer (``train/optim.py``) partitions parameters by name, and
+Submodule names follow the JAX tree (``gcn1``/``gcn2``, ``GIN_conv1``/
+``GIN_conv2``, ``GAT_conv1``/``GAT_conv2``, ``edge_prob_mlp``): the dual
+optimizer (``train/optim.py``) partitions parameters by name, and
 ``models.convert.params_from_jax`` maps the flax tree onto them.
 """
 from __future__ import annotations
@@ -11,39 +12,46 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from .layers import GCNConv
-from .scorers import EdgeProbGCN
+from .layers import ChebConv, GATConv, GCNConv, GINConv
+from .scorers import get_edge_mlp
 from ..core.device import resolve_device, torch_dtype
 from ..ops.dropout import dropout
 
 
-class GNNModel(nn.Module):
-    """2-layer GCN backbone. Per-edge weights (the sampled probabilities)
-    enter the symmetric normalisation."""
+class _Backbone(nn.Module):
+    """Shared part of the backbones: the scorer (registered first, so one
+    generator draws it first), the two layers' forward with dropout
+    between them, and the scorer's entry points. A subclass registers its
+    two layers under their JAX names and returns them from ``layers``.
+    The edge weights go to both layers; GIN and GAT ignore them, as PyG's
+    do."""
 
-    def __init__(self, in_channels: int, hidden_dim: int, num_classes: int,
-                 dropout_prob: float = 0.3, dtype=torch.float32,
-                 generator=None):
+    def __init__(self, in_channels: int, hidden_dim: int,
+                 dropout_prob: float = 0.3, edge_mlp_type: str = "MLP",
+                 dtype=torch.float32, generator=None):
         super().__init__()
         self.dropout_prob = dropout_prob
-        self.edge_prob_mlp = EdgeProbGCN(in_channels, hidden_dim,
-                                         dropout_prob, dtype, generator)
-        self.gcn1 = GCNConv(in_channels, hidden_dim, dtype, generator)
-        self.gcn2 = GCNConv(hidden_dim, num_classes, dtype, generator)
+        self.edge_prob_mlp = get_edge_mlp(in_channels, hidden_dim,
+                                          dropout_prob, edge_mlp_type, dtype,
+                                          generator)
+
+    def layers(self):
+        raise NotImplementedError
 
     def forward(self, x, senders, receivers, edge_weight=None,
                 deterministic: bool = True, generator=None):
-        h = torch.relu(self.gcn1(x, senders, receivers, edge_weight))
+        layer1, layer2 = self.layers()
+        h = torch.relu(layer1(x, senders, receivers, edge_weight))
         h = dropout(h, self.dropout_prob, generator,
                     training=not deterministic)
-        return self.gcn2(h, senders, receivers, edge_weight)
+        return layer2(h, senders, receivers, edge_weight)
 
     def score_edges(self, x, prop_senders, prop_receivers, score_senders,
                     score_receivers, deterministic: bool = True,
                     use_remat: bool = False, score_receiver_band: int = 0,
                     score_sorted_side: str = "", generator=None):
         """The scorer (encoder on the prop edges, head on the score edges);
-        see ``EdgeProbGCN.score_from`` for the band and remat options."""
+        see ``_EdgeScorer.score_from`` for the band and remat options."""
         return self.edge_prob_mlp(x, prop_senders, prop_receivers,
                                   score_senders, score_receivers,
                                   deterministic, use_remat,
@@ -76,19 +84,94 @@ class GNNModel(nn.Module):
                                               seed)
 
 
+class GNNModel(_Backbone):
+    """2-layer GCN backbone. Per-edge weights (the sampled probabilities)
+    enter the symmetric normalisation."""
+
+    def __init__(self, in_channels: int, hidden_dim: int, num_classes: int,
+                 dropout_prob: float = 0.3, edge_mlp_type: str = "MLP",
+                 heads: int = 1, dtype=torch.float32, generator=None):
+        super().__init__(in_channels, hidden_dim, dropout_prob,
+                         edge_mlp_type, dtype, generator)
+        self.gcn1 = GCNConv(in_channels, hidden_dim, dtype, generator)
+        self.gcn2 = GCNConv(hidden_dim, num_classes, dtype, generator)
+
+    def layers(self):
+        return self.gcn1, self.gcn2
+
+
+class GINModel(_Backbone):
+    """2-layer GIN; edge weights are ignored."""
+
+    def __init__(self, in_channels: int, hidden_dim: int, num_classes: int,
+                 dropout_prob: float = 0.3, edge_mlp_type: str = "MLP",
+                 heads: int = 1, dtype=torch.float32, generator=None):
+        super().__init__(in_channels, hidden_dim, dropout_prob,
+                         edge_mlp_type, dtype, generator)
+        self.GIN_conv1 = GINConv(in_channels, hidden_dim, hidden_dim, dtype,
+                                 generator)
+        self.GIN_conv2 = GINConv(hidden_dim, hidden_dim, num_classes, dtype,
+                                 generator)
+
+    def layers(self):
+        return self.GIN_conv1, self.GIN_conv2
+
+
+class GATModel(_Backbone):
+    """2-layer GAT: ``heads`` concatenated heads, then one head averaged
+    (the reference's PyG default is heads=1); edge weights are ignored."""
+
+    def __init__(self, in_channels: int, hidden_dim: int, num_classes: int,
+                 dropout_prob: float = 0.3, edge_mlp_type: str = "MLP",
+                 heads: int = 1, dtype=torch.float32, generator=None):
+        super().__init__(in_channels, hidden_dim, dropout_prob,
+                         edge_mlp_type, dtype, generator)
+        self.GAT_conv1 = GATConv(in_channels, hidden_dim, heads=heads,
+                                 concat=True, dtype=dtype,
+                                 generator=generator)
+        self.GAT_conv2 = GATConv(heads * hidden_dim, num_classes, heads=1,
+                                 concat=False, dtype=dtype,
+                                 generator=generator)
+
+    def layers(self):
+        return self.GAT_conv1, self.GAT_conv2
+
+
+class ChebModel(_Backbone):
+    """2-layer ChebConv with K=1 (graph-free: X Theta_0 + b per layer)."""
+
+    def __init__(self, in_channels: int, hidden_dim: int, num_classes: int,
+                 dropout_prob: float = 0.3, edge_mlp_type: str = "MLP",
+                 heads: int = 1, dtype=torch.float32, generator=None):
+        super().__init__(in_channels, hidden_dim, dropout_prob,
+                         edge_mlp_type, dtype, generator)
+        self.gcn1 = ChebConv(in_channels, hidden_dim, K=1, dtype=dtype,
+                             generator=generator)
+        self.gcn2 = ChebConv(hidden_dim, num_classes, K=1, dtype=dtype,
+                             generator=generator)
+
+    def layers(self):
+        return self.gcn1, self.gcn2
+
+
+BACKBONES = {"GCN": GNNModel, "GIN": GINModel, "GAT": GATModel,
+             "Cheb": ChebModel}
+
+
 def get_model(gnn: str, in_channels: int, hidden_dim: int, num_classes: int,
-              dropout_prob: float = 0.3, edge_mlp_type: str = "GCN",
-              dtype="float32", device="cuda", generator=None) -> GNNModel:
-    """Backbone factory. ``dtype`` is the compute dtype of the matmuls
-    (parameters stay float32). Parameters are drawn on the CPU from
-    ``generator`` (flax's initialisers), so one seed gives the same weights
-    on every device, then moved to ``device``."""
-    if gnn != "GCN" or edge_mlp_type != "GCN":
-        raise NotImplementedError(
-            f"GNN={gnn!r} with edge_mlp_type={edge_mlp_type!r}: the port "
-            "carries the GCN backbone with the GCN scorer so far; the other "
-            "backbones and scorers come with a later slice (ROADMAP.md)")
+              dropout_prob: float = 0.3, edge_mlp_type: str = "MLP",
+              heads: int = 1, dtype="float32", device="cuda",
+              generator=None) -> _Backbone:
+    """Backbone factory (reference main.py:98-111): ``gnn`` in GCN, GIN,
+    GAT, Cheb; ``edge_mlp_type`` in MLP, GSAGE, GCN; ``heads`` the first
+    GAT layer's. ``dtype`` is the compute dtype of the matmuls (parameters
+    stay float32). Parameters are drawn on the CPU from ``generator``
+    (flax's initialisers), scorer first, so one seed gives the same
+    weights on every device, then moved to ``device``."""
+    if gnn not in BACKBONES:
+        raise NotImplementedError(gnn)
     dev = resolve_device(device)
-    model = GNNModel(in_channels, hidden_dim, num_classes, dropout_prob,
-                     torch_dtype(dtype), generator)
+    model = BACKBONES[gnn](in_channels, hidden_dim, num_classes,
+                           dropout_prob, edge_mlp_type, heads,
+                           torch_dtype(dtype), generator)
     return model.to(dev)

@@ -1,15 +1,30 @@
 """Move parameters from the JAX package's flax tree into the port.
 
-The flax tree of the GCN backbone with the GCN scorer is
+The flax tree of a backbone is ``params/{<backbone layers>, edge_prob_mlp}``
+with, per layer (kernels (in, out), biases (out,)):
 
-    params/{gcn1,gcn2}/{lin/kernel (in, out), bias}
-    params/edge_prob_mlp/{gcn1,gcn2}/{lin/kernel, bias}
-    params/edge_prob_mlp/head/fc1/{kernel (2F, K), bias (K,)}
-    params/edge_prob_mlp/head/fc2/{kernel (K, 1), bias (1,)}
+    GCNConv   gcn1, gcn2 (GCN backbone; GCN scorer's encoder):
+              lin/kernel, bias
+    ChebConv  gcn1, gcn2 (Cheb backbone, K=1): lins_0/kernel, bias
+              (K > 1 adds lins_1/kernel ... lins_{K-1}/kernel)
+    GINConv   GIN_conv1, GIN_conv2: mlp_lin1/{kernel, bias},
+              mlp_lin2/{kernel, bias}
+    GATConv   GAT_conv1, GAT_conv2: lin/kernel (in, H*F), att_src (1, H, F),
+              att_dst (1, H, F), bias (H*F,) concatenated or (F,) averaged
+    SAGEConv  edge_prob_mlp/gcn1 (GSAGE scorer): lin_l/{kernel, bias},
+              lin_r/kernel
 
-and the port's module tree has the same names, with ``nn.Linear`` weights
-in place of kernels: a flax kernel is (in, out), a ``Linear.weight`` is
-(out, in), so kernels are transposed and renamed ``weight``.
+and the scorer's own parameters
+
+    edge_prob_mlp/head/fc1/{kernel (2F, K), bias (K,)}
+    edge_prob_mlp/head/fc2/{kernel (K, 1), bias (1,)}
+    edge_prob_mlp/fcdim/{kernel, bias}             (MLP scorer)
+    edge_prob_mlp/{gcn1, gcn2}/...                 (GCN scorer: GCNConv)
+
+The port's module tree has the same names, with ``nn.Linear`` weights in
+place of kernels: a flax kernel is (in, out), a ``Linear.weight`` is
+(out, in), so kernels are transposed and renamed ``weight``. Every other
+leaf (biases, ``att_src``, ``att_dst``) keeps its shape.
 """
 from __future__ import annotations
 

@@ -1,9 +1,19 @@
-"""Graph convolution layers over COO graphs (port of ``models/layers.py``;
-this slice carries ``GCNConv``).
+"""Graph convolution layers over COO graphs (port of ``models/layers.py``):
+``GCNConv``, ``SAGEConv``, ``GATConv``, ``GINConv`` and ``ChebConv``, the
+semantics of the PyG layers the reference builds on.
 
-Parameters stay float32; the dense projection runs in the compute dtype
-(bf16 on the card), degree normalisation and the sparse aggregation
-accumulate in float32, with the JAX layer's cast points.
+Parameters stay float32; the dense projections run in the compute dtype
+(bf16 on the card), degree normalisation and the sparse aggregations
+accumulate in float32, with the JAX layers' cast points. Edge weights
+follow PyG: GCN and Cheb use them in the normalisation, GIN and GAT
+ignore them. Gathers are ``gather_rows`` (VJP: K1, or K2 for an (N,)
+table), sums ``ops.scatter`` (K1 for rows, K2 for scalars) or
+``ops.segment``; every index stays int32. The JAX layers' halo hooks
+(``exchange``, ``edge_mask``) and their densified-subgraph route
+(``DenseEdges``) are not ported: these layers take the COO route.
+
+Initialisers follow flax: ``glorot_uniform`` where the JAX layer names it,
+otherwise ``nn.Dense``'s ``lecun_normal`` with a zero bias.
 """
 from __future__ import annotations
 
@@ -12,8 +22,15 @@ import math
 import torch
 from torch import nn
 
-from ..ops.scatter import segment_sum_scalar
+from ..ops.edge_gather import gather_rows
+from ..ops.gcn_norm import gcn_norm
+from ..ops.scatter import scatter_add, segment_sum_scalar
+from ..ops.segment import segment_mean, segment_softmax
 from ..ops.spmm import spmm
+
+_TRUNC_STD = 0.87962566103423978   # std of a unit normal truncated to [-2, 2]
+# parameters are float32 whatever torch's default dtype is
+PARAM_DTYPE = torch.float32
 
 
 def glorot_uniform_(weight: torch.Tensor, generator=None) -> torch.Tensor:
@@ -22,6 +39,40 @@ def glorot_uniform_(weight: torch.Tensor, generator=None) -> torch.Tensor:
     limit = math.sqrt(6.0 / (fan_in + fan_out))
     with torch.no_grad():
         return weight.uniform_(-limit, limit, generator=generator)
+
+
+def lecun_normal_(weight: torch.Tensor, generator=None) -> torch.Tensor:
+    """flax ``lecun_normal`` (truncated normal, variance 1/fan_in) on an
+    (out, in) weight."""
+    std = math.sqrt(1.0 / weight.shape[1]) / _TRUNC_STD
+    with torch.no_grad():
+        return nn.init.trunc_normal_(weight, std=std, a=-2 * std, b=2 * std,
+                                     generator=generator)
+
+
+def dense(in_features: int, features: int, bias: bool = True,
+          generator=None) -> nn.Linear:
+    """flax ``nn.Dense``'s parameters: lecun_normal weight, zero bias."""
+    lin = nn.Linear(in_features, features, bias=bias, dtype=PARAM_DTYPE)
+    lecun_normal_(lin.weight, generator)
+    if bias:
+        nn.init.zeros_(lin.bias)
+    return lin
+
+
+def glorot_dense(in_features: int, features: int,
+                 generator=None) -> nn.Linear:
+    """A bias-free projection with a glorot_uniform weight."""
+    lin = nn.Linear(in_features, features, bias=False, dtype=PARAM_DTYPE)
+    glorot_uniform_(lin.weight, generator)
+    return lin
+
+
+def linear(x, lin: nn.Linear, dtype):
+    """``lin`` applied in ``dtype`` (input, weight and bias cast), as flax
+    ``nn.Dense(dtype=...)`` computes it."""
+    bias = None if lin.bias is None else lin.bias.to(dtype)
+    return nn.functional.linear(x.to(dtype), lin.weight.to(dtype), bias)
 
 
 class GCNConv(nn.Module):
@@ -40,9 +91,8 @@ class GCNConv(nn.Module):
         super().__init__()
         self.dtype = dtype
         self.backend = backend
-        self.lin = nn.Linear(in_features, features, bias=False)
-        glorot_uniform_(self.lin.weight, generator)
-        self.bias = nn.Parameter(torch.zeros(features))
+        self.lin = glorot_dense(in_features, features, generator)
+        self.bias = nn.Parameter(torch.zeros(features, dtype=PARAM_DTYPE))
 
     def forward(self, x, senders, receivers, edge_weight=None):
         n = x.shape[0]
@@ -51,11 +101,138 @@ class GCNConv(nn.Module):
                  if edge_weight is None else edge_weight.float())
         deg = segment_sum_scalar(w_deg, receivers, n) + 1.0
         dis = torch.where(deg > 0, torch.rsqrt(deg.clamp(min=1e-32)), 0.0)
-        xw = nn.functional.linear(x.to(self.dtype),
-                                  self.lin.weight.to(self.dtype))
+        xw = linear(x, self.lin, self.dtype)
         xs = xw * dis[:, None].to(xw.dtype)
         agg = spmm(senders, receivers, edge_weight, xs, n,
                    backend=self.backend)
         out = (agg.float() * dis[:, None]
                + (dis * dis)[:, None] * xw.float())
+        return out + self.bias
+
+
+class SAGEConv(nn.Module):
+    """GraphSAGE layer, PyG defaults (mean aggregation, root weight):
+    W_l mean_{j->i} x_j + b + W_r x_i. The mean is taken of the raw rows
+    before the projection, as the JAX layer does: K1 sums x[senders] in
+    f32, K2 counts the edges."""
+
+    def __init__(self, in_features: int, features: int,
+                 dtype: torch.dtype = torch.float32, generator=None):
+        super().__init__()
+        self.dtype = dtype
+        self.lin_l = dense(in_features, features, True, generator)
+        self.lin_r = dense(in_features, features, False, generator)
+
+    def forward(self, x, senders, receivers, edge_weight=None):
+        agg = segment_mean(gather_rows(x, senders), receivers, x.shape[0])
+        out = linear(agg, self.lin_l, self.dtype) \
+            + linear(x, self.lin_r, self.dtype)
+        return out.float()
+
+
+class GATConv(nn.Module):
+    """Graph attention (GATv1), PyG defaults: heads concatenated or
+    averaged, leaky_relu slope 0.2, self-loops added. ``xw`` is projected
+    in the compute dtype and kept in f32; the attention logits of the E+N
+    edges (self-loops concatenated, int32) are softmaxed per destination
+    and head (``segment_softmax``), and the (E+N, H·F) f32 messages are
+    summed by K1. ``edge_weight`` is ignored."""
+
+    def __init__(self, in_features: int, features: int, heads: int = 1,
+                 concat: bool = True, negative_slope: float = 0.2,
+                 dtype: torch.dtype = torch.float32, generator=None):
+        super().__init__()
+        self.dtype = dtype
+        self.heads, self.features = heads, features
+        self.concat, self.negative_slope = concat, negative_slope
+        self.lin = glorot_dense(in_features, heads * features, generator)
+        # glorot_uniform of a (1, H, F) array: fan_in H, fan_out F
+        limit = math.sqrt(6.0 / (heads + features))
+        self.att_src = nn.Parameter(torch.empty(1, heads, features,
+                                                dtype=PARAM_DTYPE))
+        self.att_dst = nn.Parameter(torch.empty(1, heads, features,
+                                                dtype=PARAM_DTYPE))
+        with torch.no_grad():
+            for att in (self.att_src, self.att_dst):
+                att.uniform_(-limit, limit, generator=generator)
+        self.bias = nn.Parameter(torch.zeros(
+            heads * features if concat else features, dtype=PARAM_DTYPE))
+
+    def forward(self, x, senders, receivers, edge_weight=None):
+        n, h, f = x.shape[0], self.heads, self.features
+        xw = linear(x, self.lin, self.dtype).float()            # (N, H·F)
+        xw3 = xw.reshape(n, h, f)
+        alpha_src = (xw3 * self.att_src).sum(-1)                 # (N, H)
+        alpha_dst = (xw3 * self.att_dst).sum(-1)
+        if h == 1:
+            # one head: (N,) tables, so the sums and VJPs are K2's
+            alpha_src, alpha_dst = alpha_src[:, 0], alpha_dst[:, 0]
+        loop = torch.arange(n, dtype=senders.dtype, device=senders.device)
+        s = torch.cat([senders, loop])
+        r = torch.cat([receivers, loop])
+        logits = nn.functional.leaky_relu(
+            gather_rows(alpha_src, s) + gather_rows(alpha_dst, r),
+            self.negative_slope)
+        alpha = segment_softmax(logits, r, n).reshape(-1, h, 1)  # (E', H, 1)
+        msgs = gather_rows(xw, s).reshape(-1, h, f) * alpha
+        out = scatter_add(msgs.reshape(-1, h * f), r, n)
+        if not self.concat:
+            out = out.reshape(n, h, f).mean(dim=1)
+        return out + self.bias
+
+
+class GINConv(nn.Module):
+    """GIN layer with eps = 0: MLP(x_i + sum_{j->i} x_j), the MLP
+    Linear-ReLU-Linear in the compute dtype, output f32. The sum is
+    ``spmm(backend="auto")``: messages in x's dtype, K1 in f32.
+    ``edge_weight`` is ignored."""
+
+    def __init__(self, in_features: int, hidden: int, features: int,
+                 dtype: torch.dtype = torch.float32, generator=None):
+        super().__init__()
+        self.dtype = dtype
+        self.mlp_lin1 = dense(in_features, hidden, True, generator)
+        self.mlp_lin2 = dense(hidden, features, True, generator)
+
+    def forward(self, x, senders, receivers, edge_weight=None):
+        z = x + spmm(senders, receivers, None, x, x.shape[0])
+        z = torch.relu(linear(z, self.mlp_lin1, self.dtype))
+        return linear(z, self.mlp_lin2, self.dtype).float()
+
+
+class ChebConv(nn.Module):
+    """Chebyshev spectral convolution, symmetric normalisation, lambda_max
+    2: sum_k T_k(L_hat) x Theta_k + b with T_0 = x, T_1 = L_hat x, T_k =
+    2 L_hat T_{k-1} - T_{k-2}, L_hat = (2 / lambda_max) (I - A_norm) - I
+    and A_norm = D^{-1/2} A D^{-1/2} without self-loops (``gcn_norm``,
+    ``spmm``). K = 1 (the backbone's) is the graph-free X Theta_0 + b.
+    Theta_0 runs in the compute dtype, Theta_k (k >= 1) in f32, as the JAX
+    layer's ``lins_k`` carry no dtype."""
+
+    def __init__(self, in_features: int, features: int, K: int = 1,
+                 lambda_max: float = 2.0, dtype: torch.dtype = torch.float32,
+                 generator=None):
+        super().__init__()
+        self.dtype, self.K, self.lambda_max = dtype, K, lambda_max
+        for k in range(K):
+            setattr(self, f"lins_{k}",
+                    glorot_dense(in_features, features, generator))
+        self.bias = nn.Parameter(torch.zeros(features, dtype=PARAM_DTYPE))
+
+    def forward(self, x, senders, receivers, edge_weight=None):
+        out = linear(x, self.lins_0, self.dtype).float()
+        if self.K > 1:
+            n = x.shape[0]
+            s, r, w = gcn_norm(senders, receivers, edge_weight, n,
+                               add_loops=False)
+
+            def l_hat(v):
+                return (2.0 / self.lambda_max) * (v - spmm(s, r, w, v, n)) - v
+
+            tx_prev, tx = x, l_hat(x)
+            out = out + linear(tx, self.lins_1, torch.float32)
+            for k in range(2, self.K):
+                tx_prev, tx = tx, 2.0 * l_hat(tx) - tx_prev
+                out = out + linear(tx, getattr(self, f"lins_{k}"),
+                                   torch.float32)
         return out + self.bias

@@ -1,5 +1,6 @@
-"""Edge-probability scorers (port of ``models/scorers.py``; this slice
-carries the GCN scorer).
+"""Edge-probability scorers (port of ``models/scorers.py``): ``EdgeProbMLP``
+(a per-node projection), ``EdgeProbSAGE`` (one GraphSAGE layer) and
+``EdgeProbGCN`` (two GCN layers), built by ``get_edge_mlp``.
 
 An encoder produces node embeddings h, then a shared score head maps each
 edge (u, v) -> sigmoid(fc2(relu(fc1([h_u * h_v || h_u - h_v])))):
@@ -35,28 +36,15 @@ kernels read it there, so no step waits for the card).
 """
 from __future__ import annotations
 
-import math
-
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from .layers import GCNConv
+from .layers import GCNConv, SAGEConv, dense, linear
 from ..ops.dropout import apply_keep, dropout, dropout_keep
 from ..ops.edge_gather import gather_rows
 from ..ops.score_sampled import score_head_sampled
 from ..ops.score_tiles import score_head_tiles
-
-_TRUNC_STD = 0.87962566103423978   # std of a unit normal truncated to [-2, 2]
-
-
-def lecun_normal_(weight: torch.Tensor, generator=None) -> torch.Tensor:
-    """flax ``lecun_normal`` (truncated normal, variance 1/fan_in) on an
-    (out, in) weight."""
-    std = math.sqrt(1.0 / weight.shape[1]) / _TRUNC_STD
-    with torch.no_grad():
-        return nn.init.trunc_normal_(weight, std=std, a=-2 * std, b=2 * std,
-                                     generator=generator)
 
 
 class _ScoreHead(nn.Module):
@@ -65,11 +53,8 @@ class _ScoreHead(nn.Module):
     def __init__(self, hidden_dim: int, dropout_prob: float, generator=None):
         super().__init__()
         self.dropout_prob = dropout_prob
-        self.fc1 = nn.Linear(2 * hidden_dim, hidden_dim)
-        self.fc2 = nn.Linear(hidden_dim, 1)
-        for lin in (self.fc1, self.fc2):
-            lecun_normal_(lin.weight, generator)
-            nn.init.zeros_(lin.bias)
+        self.fc1 = dense(2 * hidden_dim, hidden_dim, True, generator)
+        self.fc2 = dense(hidden_dim, 1, True, generator)
 
     def forward(self, h, senders, receivers, deterministic: bool = True,
                 sorted_side: str = "", generator=None):
@@ -123,28 +108,21 @@ def draw_seed(generator, device):
                          device=device, dtype=torch.int32)
 
 
-class EdgeProbGCN(nn.Module):
-    """2-layer GCN encoder + score head: the default scorer
-    (``edge_mlp_type='GCN'``)."""
+class _EdgeScorer(nn.Module):
+    """Shared part of the scorers: the score head, ``score_from`` with its
+    two routes, ``score_tiles`` and ``forward``; a subclass adds its
+    encoder after the head, so one generator draws the head first."""
 
-    def __init__(self, in_channels: int, hidden_dim: int,
-                 dropout_prob: float = 0.2, dtype=torch.float32,
-                 generator=None):
+    def __init__(self, hidden_dim: int, dropout_prob: float = 0.2,
+                 dtype=torch.float32, generator=None):
         super().__init__()
         self.dtype = dtype
         self.dropout_prob = dropout_prob
-        # registration order fixes the init order from one generator
         self.head = _ScoreHead(hidden_dim, dropout_prob, generator)
-        self.gcn1 = GCNConv(in_channels, hidden_dim, dtype, generator)
-        self.gcn2 = GCNConv(hidden_dim, hidden_dim, dtype, generator)
 
     def encode(self, x, prop_senders, prop_receivers,
                deterministic: bool = True, generator=None):
-        h = self.gcn1(x, prop_senders, prop_receivers)
-        h = dropout(torch.relu(h), self.dropout_prob, generator,
-                    training=not deterministic)
-        h = torch.relu(self.gcn2(h, prop_senders, prop_receivers))
-        return h.to(self.dtype)
+        raise NotImplementedError
 
     def score_from(self, h, senders, receivers, deterministic: bool = True,
                    use_remat: bool = False, receiver_band: int = 0,
@@ -189,3 +167,75 @@ class EdgeProbGCN(nn.Module):
         return self.score_from(h, score_senders, score_receivers,
                                deterministic, use_remat, score_receiver_band,
                                score_sorted_side, generator)
+
+
+class EdgeProbMLP(_EdgeScorer):
+    """MLP scorer (``edge_mlp_type='MLP'``): a per-node projection,
+    ReLU and dropout, no propagation; the head gathers the projected rows
+    (the JAX scorer's row-wise form)."""
+
+    def __init__(self, in_channels: int, hidden_dim: int,
+                 dropout_prob: float = 0.2, dtype=torch.float32,
+                 generator=None):
+        super().__init__(hidden_dim, dropout_prob, dtype, generator)
+        self.fcdim = dense(in_channels, hidden_dim, True, generator)
+
+    def encode(self, x, prop_senders, prop_receivers,
+               deterministic: bool = True, generator=None):
+        h = torch.relu(linear(x, self.fcdim, self.dtype))
+        h = dropout(h, self.dropout_prob, generator,
+                    training=not deterministic)
+        return h.to(self.dtype)
+
+
+class EdgeProbSAGE(_EdgeScorer):
+    """One GraphSAGE layer + score head (``edge_mlp_type='GSAGE'``). The
+    layer is named ``gcn1``, as in JAX: the dual optimizer's 'gcn' filter
+    puts it in the GCN and Cheb backbones' group too."""
+
+    def __init__(self, in_channels: int, hidden_dim: int,
+                 dropout_prob: float = 0.2, dtype=torch.float32,
+                 generator=None):
+        super().__init__(hidden_dim, dropout_prob, dtype, generator)
+        self.gcn1 = SAGEConv(in_channels, hidden_dim, dtype, generator)
+
+    def encode(self, x, prop_senders, prop_receivers,
+               deterministic: bool = True, generator=None):
+        h = self.gcn1(x, prop_senders, prop_receivers)
+        h = dropout(torch.relu(h), self.dropout_prob, generator,
+                    training=not deterministic)
+        return h.to(self.dtype)
+
+
+class EdgeProbGCN(_EdgeScorer):
+    """2-layer GCN encoder + score head (``edge_mlp_type='GCN'``)."""
+
+    def __init__(self, in_channels: int, hidden_dim: int,
+                 dropout_prob: float = 0.2, dtype=torch.float32,
+                 generator=None):
+        # registration order fixes the init order from one generator:
+        # head, gcn1, gcn2
+        super().__init__(hidden_dim, dropout_prob, dtype, generator)
+        self.gcn1 = GCNConv(in_channels, hidden_dim, dtype, generator)
+        self.gcn2 = GCNConv(hidden_dim, hidden_dim, dtype, generator)
+
+    def encode(self, x, prop_senders, prop_receivers,
+               deterministic: bool = True, generator=None):
+        h = self.gcn1(x, prop_senders, prop_receivers)
+        h = dropout(torch.relu(h), self.dropout_prob, generator,
+                    training=not deterministic)
+        h = torch.relu(self.gcn2(h, prop_senders, prop_receivers))
+        return h.to(self.dtype)
+
+
+SCORERS = {"MLP": EdgeProbMLP, "GSAGE": EdgeProbSAGE, "GCN": EdgeProbGCN}
+
+
+def get_edge_mlp(in_channels: int, hidden_dim: int, dropout_prob: float,
+                 edge_mlp_type: str = "MLP", dtype=torch.float32,
+                 generator=None) -> _EdgeScorer:
+    """Scorer factory (reference model.py:135-145)."""
+    if edge_mlp_type not in SCORERS:
+        raise NotImplementedError(edge_mlp_type)
+    return SCORERS[edge_mlp_type](in_channels, hidden_dim, dropout_prob,
+                                  dtype, generator)

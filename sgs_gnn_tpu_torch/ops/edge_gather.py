@@ -2,7 +2,8 @@
 
 ``gather_rows(table, idx, sorted_band) == table[idx]``; its VJP accumulates
 the row cotangents back into the table, ``d table = scatter_add(d out,
-idx)``. On a card that is K1 (``ops/scatter.py``), or K7
+idx)``. On a card that is K1 (``ops/scatter.py``; K2,
+``segment_sum_scalar``, for an (N,) table), or K7
 (``scatter_add_sorted``) when the caller declares ``idx`` non-decreasing
 with the narrow-band bound ``sorted_band`` (``Graph.receiver_band``), as
 the JAX op routes it (edge_gather.py:47-64). A band below
@@ -17,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from .scatter import scatter_add, scatter_add_sorted
+from .scatter import scatter_add, scatter_add_sorted, segment_sum_scalar
 
 
 class _GatherRows(torch.autograd.Function):
@@ -32,7 +33,10 @@ class _GatherRows(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         idx, = ctx.saved_tensors
-        if ctx.sorted_band > 0:
+        if g.dim() == 1:
+            dt = segment_sum_scalar(g.float().contiguous(), idx,
+                                    ctx.num_rows)
+        elif ctx.sorted_band > 0:
             dt = scatter_add_sorted(g.contiguous(), idx, ctx.num_rows,
                                     ctx.sorted_band)
         else:
@@ -41,7 +45,10 @@ class _GatherRows(torch.autograd.Function):
 
 
 def gather_rows(table, idx, sorted_band: int = 0):
-    """table[idx] for an (E,) int32 or int64 index; differentiable in
-    ``table``. ``sorted_band`` > 0 declares ``idx`` non-decreasing with that
-    band (see the module docstring)."""
+    """table[idx] for an (N, F) or (N,) table and an (E,) int32 or int64
+    index; differentiable in ``table``. ``sorted_band`` > 0 declares ``idx``
+    non-decreasing with that band (see the module docstring; (N, F) tables
+    only)."""
+    if table.dim() == 1 and sorted_band:
+        raise ValueError("gather_rows: sorted_band needs an (N, F) table")
     return _GatherRows.apply(table, idx, int(sorted_band))

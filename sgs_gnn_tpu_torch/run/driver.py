@@ -40,7 +40,7 @@ after each run the graphs captured and replayed.
 What the JAX driver has and this port does not yet carry raises
 ``NotImplementedError`` naming its ROADMAP.md item: ``data_parallel``,
 ``halo``, ``multihost`` (§1 item 8), ``gpu_profile``, ``debug_checks``,
-``plot_curve`` (item 9), backbones and scorers other than GCN (item 7).
+``plot_curve`` (item 9). Every backbone x scorer pair runs.
 """
 from __future__ import annotations
 
@@ -118,9 +118,6 @@ def check_ported(cfg: Config) -> None:
     for flag in ("gpu_profile", "debug_checks", "plot_curve"):
         if getattr(cfg, flag):
             raise _roadmap_item(f"{flag}=True", 9)
-    if cfg.GNN != "GCN" or cfg.edge_mlp_type != "GCN":
-        raise _roadmap_item(f"GNN={cfg.GNN!r} with edge_mlp_type="
-                            f"{cfg.edge_mlp_type!r}", 7)
 
 
 def want_tile_index(cfg: Config, device) -> bool:
@@ -231,8 +228,8 @@ def init_model(cfg: Config, in_channels: int, num_classes: int, run: int,
     """The run's model, its parameters drawn from seed * 1000 + run (the
     JAX driver's init key)."""
     return get_model(cfg.GNN, in_channels, cfg.nhid, num_classes,
-                     cfg.drop_rate, cfg.edge_mlp_type, dtype=cfg.dtype,
-                     device=device,
+                     cfg.drop_rate, cfg.edge_mlp_type, heads=cfg.gat_heads,
+                     dtype=cfg.dtype, device=device,
                      generator=torch.Generator().manual_seed(
                          cfg.seed * 1000 + run))
 

@@ -856,6 +856,84 @@ def test_learned_run_experiment_on_card(card, tmp_path):
     assert any(ln.startswith("[fastpath] epoch=graphed") for ln in lines)
 
 
+# ------------------------------------- the other layers (GIN, GAT, Cheb)
+#
+# Each layer on the card against the same layer and weights on the CPU in
+# f32 (plain versions), forward and backward, relative L2 per tensor. In
+# f32 the card differs only by the order of f32 sums (K1, K2 atomics):
+# 1e-5 on outputs, 1e-4 on gradients. In bf16 it also rounds the input,
+# the weights and the projection to 8 significant bits (2^-9 relative
+# each), as the same layer on the CPU in bf16 does: the limit is the larger
+# of chip_smoke.py's grad_check limits (2% on outputs, 5% on gradients) and
+# twice the CPU bf16 run's own error. The second term matters for GAT's
+# attention vectors, whose gradients sum terms that cancel over each
+# node's edges (the softmax Jacobian), so the rounding comes back
+# amplified (att_dst: 3-5% on the CPU at this size).
+LAYER_CASES = ["sage", "gin", "gat_h1_mean", "gat_h2_concat", "cheb_k1",
+               "cheb_k3"]
+
+
+def _layer(case, f_in, f_out, dtype):
+    from sgs_gnn_tpu_torch.models import layers as ly
+    gen = torch.Generator().manual_seed(3)
+    return {
+        "sage": lambda: ly.SAGEConv(f_in, f_out, dtype, gen),
+        "gin": lambda: ly.GINConv(f_in, 48, f_out, dtype, gen),
+        "gat_h1_mean": lambda: ly.GATConv(f_in, f_out, 1, False,
+                                          dtype=dtype, generator=gen),
+        "gat_h2_concat": lambda: ly.GATConv(f_in, f_out, 2, True,
+                                            dtype=dtype, generator=gen),
+        "cheb_k1": lambda: ly.ChebConv(f_in, f_out, 1, dtype=dtype,
+                                       generator=gen),
+        "cheb_k3": lambda: ly.ChebConv(f_in, f_out, 3, dtype=dtype,
+                                       generator=gen),
+    }[case]()
+
+
+def _rel_l2(a, b):
+    return float((a.float().cpu() - b).norm() / b.norm().clamp(min=1e-30))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", LAYER_CASES)
+def test_layer_on_card_matches_cpu_f32(card, case, dtype):
+    rng = np.random.default_rng(7)
+    n, e, f_in, f_out = 600, 30_000, 64, 32
+    x = torch.from_numpy(rng.normal(size=(n, f_in)).astype(np.float32))
+    s = torch.from_numpy(rng.integers(0, n, e).astype(np.int32))
+    r = torch.from_numpy(rng.integers(0, n - 1, e).astype(np.int32))  # n-1:
+    w = torch.from_numpy(rng.uniform(0.1, 1.0, e).astype(np.float32))  # empty
+    out, grads, launched, cot = {}, {}, {}, None
+    runs = [("card", card, dtype), ("cpu", "cpu", torch.float32)]
+    if dtype == torch.bfloat16:
+        runs.append(("cpu_bf16", "cpu", dtype))
+    for side, dev, dt in runs:
+        layer = _layer(case, f_in, f_out, dt).to(dev)
+        xd = x.to(dev).requires_grad_()
+        LAUNCHES.clear()
+        y = layer(xd, s.to(dev), r.to(dev), w.to(dev))
+        if cot is None:
+            cot = torch.from_numpy(rng.normal(size=tuple(y.shape))
+                                   .astype(np.float32))
+        names, params = zip(*layer.named_parameters())
+        g = torch.autograd.grad(y, list(params) + [xd], cot.to(dev))
+        out[side] = y.detach().float().cpu()
+        grads[side] = dict(zip(list(names) + ["x"], g))
+        launched[side] = dict(LAUNCHES)
+    # K=1 Chebyshev is graph-free; every other layer sums on the kernels
+    assert bool(launched["card"]) == (case != "cheb_k1"), launched
+    assert not launched["cpu"]
+    if dtype == torch.float32:
+        val_tol, grad_tol = 1e-5, dict.fromkeys(grads["cpu"], 1e-4)
+    else:
+        val_tol = max(2e-2, 2 * _rel_l2(out["cpu_bf16"], out["cpu"]))
+        grad_tol = {k: max(5e-2, 2 * _rel_l2(grads["cpu_bf16"][k], want))
+                    for k, want in grads["cpu"].items()}
+    assert _rel_l2(out["card"], out["cpu"]) <= val_tol
+    for name, want in grads["cpu"].items():
+        assert _rel_l2(grads["card"][name], want) <= grad_tol[name], name
+
+
 # ------------------------------------------------------ the graphed epoch
 #
 # A graphed epoch and an eager one from the same seeds draw the same
@@ -874,6 +952,12 @@ GRAPHED_KW = {
     "hybrid_rescore": dict(mode="learned", pipeline="hybrid",
                            conditional=True, sparse_edge_mlp=True, reg1=True,
                            reg2=True),
+    # the GAT backbone with the GraphSAGE scorer (segment softmax, K2 on
+    # the attention terms, K1 on f32 messages and raw features)
+    "hybrid_rescore_gat_gsage": dict(
+        mode="learned", pipeline="hybrid", conditional=True,
+        sparse_edge_mlp=True, reg1=True, reg2=True, GNN="GAT",
+        edge_mlp_type="GSAGE"),
     "two_pass": dict(mode="learned", pipeline="two_pass", conditional=True,
                      sparse_edge_mlp=True, reg1=True, reg2=True),
     "random": dict(mode="random"),
@@ -912,10 +996,10 @@ def _graphed_batches(card, cfg):
 
 def _graphed_model(card, cfg, batches, classes):
     from sgs_gnn_tpu_torch import DualOptimizer, get_model
-    tm = get_model("GCN", batches[0].x.shape[1], cfg.nhid, classes,
-                   cfg.drop_rate, "GCN", device=card,
-                   generator=torch.Generator().manual_seed(1))
-    return tm, DualOptimizer.create(tm, "GCN", cfg.lr, cfg.weight_decay)
+    tm = get_model(cfg.GNN, batches[0].x.shape[1], cfg.nhid, classes,
+                   cfg.drop_rate, cfg.edge_mlp_type, heads=cfg.gat_heads,
+                   device=card, generator=torch.Generator().manual_seed(1))
+    return tm, DualOptimizer.create(tm, cfg.GNN, cfg.lr, cfg.weight_decay)
 
 
 def _run_epochs(steps, batches, plan, epochs, gen, first=0):
@@ -941,7 +1025,7 @@ def test_graphed_epoch_equals_the_eager_epoch(card, name):
     from sgs_gnn_tpu_torch.train import make_scan_epoch_step
     cfg = Config(**GRAPHED_BASE, **GRAPHED_KW[name])
     batches, plan, q, classes = _graphed_batches(card, cfg)
-    if name == "hybrid_rescore":
+    if name.startswith("hybrid_rescore"):
         assert batches[0].tile_t > 0          # K6 scores the tile slots
     out = {}
     for route in ("eager", "graphed"):

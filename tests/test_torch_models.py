@@ -105,17 +105,10 @@ def test_gnn_model_matches_flax(models, weighted):
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
 
 
-def test_get_model_rejects_other_backbones():
-    with pytest.raises(NotImplementedError, match="GIN"):
-        get_model("GIN", 4, 8, 2, device="cpu")
-    with pytest.raises(NotImplementedError, match="MLP"):
-        get_model("GCN", 4, 8, 2, edge_mlp_type="MLP", device="cpu")
-
-
 def test_get_model_same_seed_same_weights():
-    a = get_model("GCN", 6, 8, 3, device="cpu",
+    a = get_model("GCN", 6, 8, 3, edge_mlp_type="GCN", device="cpu",
                   generator=torch.Generator().manual_seed(5))
-    b = get_model("GCN", 6, 8, 3, device="cpu",
+    b = get_model("GCN", 6, 8, 3, edge_mlp_type="GCN", device="cpu",
                   generator=torch.Generator().manual_seed(5))
     for (ka, va), (kb, vb) in zip(a.state_dict().items(),
                                   b.state_dict().items()):

@@ -4,6 +4,7 @@
     python3 tools/graphed_readings.py noise        # the card tests' limits
     python3 tools/graphed_readings.py k2_ghost     # the padded K2 check
     python3 tools/graphed_readings.py first_epoch  # capture epoch A/B
+    python3 tools/graphed_readings.py experiment_noise  # route limits
 
 ``noise``: the setup of tests/test_torch_cuda.py's graphed-epoch test (4
 partitions, a plan with skip, small and sampled batches, 3 epochs) per
@@ -23,6 +24,13 @@ epochs) through ``run_experiment`` with graphs, where epoch 0 runs each
 (each graph draws from a generator of its own that takes the caller's
 state) against registering the caller's generator with the graph, in
 turns (own, caller, caller, own) three times in one process.
+
+``experiment_noise``: chip_smoke.py's experiment cell, learned, 2 epochs,
+for the GCN backbone with the GCN scorer and the GAT backbone with the
+GraphSAGE scorer, each run eager, graphed, graphed, eager from the same
+seeds: the losses, F1 curves and conditional (edge-group) updates of
+every run, and the largest relative loss difference and F1 difference of
+each pair of runs (graphed vs eager, eager vs eager, graphed vs graphed).
 """
 import functools
 import importlib.util
@@ -169,8 +177,45 @@ def first_epoch():
     graphed.Graphs.run = own
 
 
+def experiment_noise():
+    import itertools
+    import chip_smoke as cs
+    from sgs_gnn_tpu_torch.run import driver
+    from sgs_gnn_tpu_torch.run.cli import config_from_args
+    cs.phase_serve(torch, cs.build_partition())     # kernels built, warm
+    ds = cs.experiment_dataset()
+    with tempfile.TemporaryDirectory() as results_dir:
+        for gnn, scorer in (("GCN", "GCN"), ("GAT", "GSAGE")):
+            runs = []
+            for route in ("eager", "graphed", "graphed", "eager"):
+                extra = ["--GNN", gnn, "--edge_mlp_type", scorer,
+                         "--save_csv", "false"]
+                if route == "eager":
+                    extra += ["--scan_epoch", "off"]
+                cfg = config_from_args(cs.experiment_args(
+                    "learned", results_dir, extra=extra))
+                (res,) = driver.run_experiment(
+                    cfg, ds, log_fn=lambda line: None, device="cuda")
+                curves = res.train_curve + res.val_curve + res.test_curve
+                runs.append((route, res.losses, curves))
+                print(json.dumps(dict(
+                    reading="experiment_noise", model=f"{gnn}+{scorer}",
+                    route=route, losses=res.losses, f1_curves=curves,
+                    edge_updates=res.conditional_updates)), flush=True)
+                torch.cuda.empty_cache()
+            for (ra, la, ca), (rb, lb, cb) in itertools.combinations(runs, 2):
+                print(json.dumps(dict(
+                    reading="experiment_noise_pair", model=f"{gnn}+{scorer}",
+                    pair=f"{ra} vs {rb}",
+                    loss_rel=max(abs(a - b) / abs(b) for a, b in zip(la, lb)),
+                    f1_abs=max(abs(a - b) for a, b in zip(ca, cb)))),
+                    flush=True)
+
+
 if __name__ == "__main__":
     if not torch.cuda.is_available():
         sys.exit("graphed_readings: needs an NVIDIA card")
-    for what in sys.argv[1:] or ["noise", "k2_ghost", "first_epoch"]:
-        dict(noise=noise, k2_ghost=k2_ghost, first_epoch=first_epoch)[what]()
+    for what in sys.argv[1:] or ["noise", "k2_ghost", "first_epoch",
+                                 "experiment_noise"]:
+        dict(noise=noise, k2_ghost=k2_ghost, first_epoch=first_epoch,
+             experiment_noise=experiment_noise)[what]()
