@@ -88,6 +88,19 @@ Phases, each printing one JSON line:
               and GIN + MLP also run graphed (launch counts equal to the
               eager step's), with a ``profile`` line per route, and a
               ``grad_check`` each (the train phase's limits).
+  5c. dense   dense_subgraph='on' (the subgraphs densified into (N, N)
+              adjacencies, ops/dense_graph.py) on the same partition for
+              hybrid_rescore, two_pass and GAT + GCN: the train phase's
+              path as a ``dense`` line each (launches held to
+              ``dense_launches``, derived from the code: K1 and K2 of the
+              scorer's encoder and of the random forward are gone; eager
+              and graphed step times, busy and idle, peak memory), a
+              ``dense_routes`` line (K1 and K2 per step on each route),
+              a ``dense_parity`` line each (frozen sample, no dropout,
+              'on' against 'off' on the card: loss and every gradient
+              within the stated limits) and a ``dense_ops`` line (the
+              (N, N) build and the (N, N) @ (N, 256) bf16 product, each
+              beside its bound and the K1 launch it replaces).
   6. experiment  the CLI's path at full width: the port's
               community_sbm_graph (9,100 nodes, 602 features, 41 classes,
               ~4.5M directed edges) through run_experiment with
@@ -118,11 +131,16 @@ Phases, each printing one JSON line:
               eager: an ``experiment`` line each and an
               ``experiment_routes`` line (launches equal, F1s within the
               same limit, losses within MODEL_EXPERIMENT_LOSS_RTOL, set
-              from that pair's own run-to-run spread).
+              from that pair's own run-to-run spread); last, learned with
+              Scripts/run_memory.sh's flags and --debug_checks (every
+              batch validated; each epoch's ``[gpu-profile]`` line with
+              the four segments' ms and MiB; the ``[stats]`` peak not
+              lowered by the profiler).
   7. quality  tests/test_quality.py's configuration (SyntheticSBMLow, f32,
               nhid 64, 60 epochs) through run_experiment for learned,
               random and full: learned must beat random by 0.2 and full by
-              0.1 in final test F1.
+              0.1 in final test F1; printed beside the JAX package's F1s
+              in the same configuration (``QUALITY_JAX_REFERENCE``).
 
 Then a ``kernels`` line (one entry per TPU kernel of the JAX package: route,
 the units it runs on, source, the TPU kernel it replaces, launches on each
@@ -248,6 +266,27 @@ def model_launches(gnn, scorer):
 # GCNConv(backend="fused"), two layers forward + backward: K2 once each, K8
 # forward and dx once each
 FUSED_LAUNCHES = {"segment_sum_scalar": 2, "spmm_fused": 4}
+# The dense phase: dense_subgraph='on' on the bench partition (N=2048 <=
+# dense_threshold) for hybrid_rescore (tile index), two_pass and the GAT
+# backbone with the GCN scorer under hybrid_rescore: (train phase's
+# pipeline, backbone). The random q-subgraph is densified (padding
+# selections zeroed), so the scorer's encoder (every pass, two_pass's
+# re-scoring pass on the winners' own (N, N) build too) and the random
+# backbone forward aggregate with (N, N) products and launch no K1 or K2.
+# What stays: the learned backbone's rows (MODEL_BACKBONE_ROWS) and reg2's
+# two row gathers (K1 2); the head kernels as on the sparse route.
+DENSE_PATHS = {"hybrid_rescore": ("hybrid_rescore", "GCN"),
+               "two_pass": ("two_pass", "GCN"),
+               "GAT+GCN": ("hybrid_rescore", "GAT")}
+
+
+def dense_launches(pipeline, gnn):
+    """The launches of one dense_subgraph='on' step (see above)."""
+    b1, b2 = MODEL_BACKBONE_ROWS[gnn]
+    out = {k: v for k, v in PIPELINES[pipeline][2].items()
+           if k not in ("scatter_add", "segment_sum_scalar")}
+    out.update(scatter_add=b1 + 2, segment_sum_scalar=b2)
+    return {k: v for k, v in out.items() if v}
 
 
 class SmokeFailure(RuntimeError):
@@ -431,6 +470,24 @@ def profile_breakdown(torch, fn, top=10):
     return dict(window_ms=window / 1e3, device_busy_ms=busy / 1e3,
                 idle_share=1.0 - busy / window, kernels=len(kernels),
                 top=sorted(by_name.items(), key=lambda kv: -kv[1])[:top])
+
+
+def graph_ms(torch, fn, calls=20):
+    """Device-paced time per call of ``fn``: ``calls`` calls captured in
+    one CUDA graph (after a warm-up on a side stream), its replays timed by
+    CUDA events, so no host work sits between the calls."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    ms = cuda_ms(torch, graph.replay, iters=5, warmup=1) / calls
+    del graph
+    return ms
 
 
 def phase_device(torch):
@@ -1563,7 +1620,7 @@ def _train_path(torch, g, name, cfg_kw, steps, expect, phase="train",
           f"{name}: losses {losses.tolist()}")
     still = [n for (n, p), b in zip(model.named_parameters(), before)
              if torch.equal(p.detach(), b)]
-    gated = phase == "model" and not bool(torch.cat(
+    gated = phase in ("model", "dense") and not bool(torch.cat(
         [torch.stack(gates_all).cpu(), gates]).any())
     check(not still or (gated and all(n.startswith("edge_prob_mlp.")
                                       for n in still)),
@@ -1723,6 +1780,179 @@ def phase_models(torch, arrays, g):
     return launches
 
 
+# The dense phase's parity: dense_subgraph 'on' against 'off' on the card,
+# frozen sample, no dropout, same weights. Both routes round the same
+# operands, and each aggregation's output, to bf16 (the sparse route casts
+# K1's f32 sums to the compute dtype where the product's output is bf16);
+# they differ by the order of the f32 sums (atomics against the tensor
+# cores' accumulation), which can flip a bf16 rounding. That is less than
+# what separates the card's bf16 from f32, which the grad_check's limits
+# (1% on the loss, GRAD_REL_TOL per gradient) bound; they bound it here.
+DENSE_LOSS_RTOL = 1e-2
+
+
+def _dense_parity(torch, g, name, cfg_kw):
+    """One frozen-sample step without dropout on the card, dense_subgraph
+    'on' against 'off', from the same weights and seeds: the loss within
+    DENSE_LOSS_RTOL, each gradient within GRAD_REL_TOL (relative L2); a
+    ``dense_parity`` line each with the conditional gate off (every
+    parameter gets a gradient: the scorer's dense encoder is held) and on
+    (the random forward is dense too; where the gate fails, the loss is
+    the random forward's)."""
+    for conditional in (False, True):
+        _dense_parity_step(torch, g, name, dict(cfg_kw,
+                                                conditional=conditional))
+
+
+def _dense_parity_step(torch, g, name, cfg_kw):
+    from sgs_gnn_tpu_torch import Config, get_model
+    from sgs_gnn_tpu_torch.train import pipelines
+    tiles = cfg_kw["pipeline"] == "hybrid"      # hybrid_rescore: tile space
+    rng = np.random.default_rng(3)
+    valid = np.flatnonzero((g.tile_mask if tiles else g.edge_mask)
+                           .cpu().numpy())
+    idx = torch.from_numpy(np.sort(rng.choice(valid, Q, replace=False))
+                           .astype(np.int32))
+    rand_idx = torch.from_numpy(rng.choice(N_EDGES, Q, replace=False)
+                                .astype(np.int32))
+    restore = _frozen_sampling(torch, pipelines, idx, rand_idx)
+    out = {}
+    try:
+        for dense in ("off", "on"):
+            cfg = Config(**dict(cfg_kw, drop_rate=0.0, dense_subgraph=dense))
+            model = get_model(cfg.GNN, FEAT, NHID, CLASSES, 0.0,
+                              cfg.edge_mlp_type, heads=cfg.gat_heads,
+                              dtype=cfg.dtype, device=DEVICE,
+                              generator=torch.Generator().manual_seed(5))
+            loss, (gate, _, _) = pipelines.make_learned_loss(cfg, model, Q)(
+                g, torch.Generator(device=DEVICE).manual_seed(0))
+            names, params = zip(*model.named_parameters())
+            grads = torch.autograd.grad(loss, params, allow_unused=True)
+            out[dense] = (float(loss.detach()), bool(gate), {
+                n: (torch.zeros_like(p) if gr is None else gr).float()
+                for n, p, gr in zip(names, params, grads)})
+    finally:
+        restore()
+    (loss_s, gate_s, g_s), (loss_d, gate_d, g_d) = out["off"], out["on"]
+    rel = {n: float((g_d[n] - w).norm() / w.norm())
+           for n, w in g_s.items() if float(w.norm()) > 0}
+    loss_rel = abs(loss_d - loss_s) / abs(loss_s)
+    emit("dense_parity", path=name, conditional=cfg_kw["conditional"],
+         loss_off=loss_s, loss_on=loss_d,
+         loss_rel_err=loss_rel, gate_off=gate_s, gate_on=gate_d,
+         grad_rel_l2_err=rel, max_grad_rel_l2_err=max(rel.values()),
+         zero_gradients=sorted(set(g_s) - set(rel)),
+         limits=dict(loss_rtol=DENSE_LOSS_RTOL, grad_rel_l2=GRAD_REL_TOL),
+         note="card bf16, sample frozen, dropout off, same weights")
+    check(gate_d == gate_s, f"dense {name}: gate on {gate_d}, off {gate_s}")
+    check(all(bool(torch.isfinite(v).all()) for v in g_d.values()),
+          f"dense {name}: non-finite gradients")
+    check(loss_rel <= DENSE_LOSS_RTOL,
+          f"dense {name}: loss on {loss_d} vs off {loss_s}")
+    bad = {n: e for n, e in rel.items() if not e <= GRAD_REL_TOL}
+    check(not bad, f"dense {name}: gradients on vs off (relative L2): {bad}")
+
+
+def _dense_ops(torch, g, k1):
+    """The dense route's two operations at the step's shapes: the (N, N)
+    build of the random q-subgraph (``dense_adj``: ``index_add_`` of the
+    validities into a zeroed flat buffer) and the (N, N) @ (N, F) bf16
+    product of the GCN layers, each beside its bound and the K1 launch it
+    replaces (``k1``: K1 on the sampled receivers, q=200k, F=256): CUDA
+    events over back-to-back calls (``*_ms``) and over replays of a CUDA
+    graph of 20 calls (``*_graph_ms``, paced by the device). The build is
+    also timed on K2's "global" route over the N*N flat ids
+    (``build_k2_*``; a comparison, no path launches it), and held to
+    ``dense_adj``'s matrix."""
+    from sgs_gnn_tpu_torch.ops import scatter as sc
+    from sgs_gnn_tpu_torch.ops.dense_graph import dense_adj
+    from sgs_gnn_tpu_torch.sparsify import sample_prior_edges
+    gen = torch.Generator(device=DEVICE).manual_seed(21)
+    aux = g.edge_aux[sample_prior_edges(gen, g.prob, Q, g.edge_mask)]
+    s, r = aux[:, 0].contiguous(), aux[:, 1].contiguous()
+    valid = (aux[:, 2] & 4) > 0
+    adj = dense_adj(s, r, N_NODES, valid=valid).adj
+    ref = dense_adj(s.cpu(), r.cpu(), N_NODES, valid=valid.cpu()).adj
+    check(torch.equal(adj.cpu(), ref),
+          "dense_adj on the card differs from the CPU build (integer "
+          "multiplicities: exact in any order)")
+    build_bytes = 9 * Q + 4 * N_NODES * N_NODES   # ids, validity; adj
+    flat = r * N_NODES + s
+    w = valid.float()
+
+    def k2_build():
+        return sc.segment_sum_scalar(w, flat, N_NODES * N_NODES)
+    check(torch.equal(k2_build().reshape(N_NODES, N_NODES), adj),
+          "K2 over the flat ids differs from dense_adj")
+    a16 = adj.to(torch.bfloat16)
+    xs = torch.randn(N_NODES, NHID, generator=gen, device=DEVICE).to(
+        torch.bfloat16)
+    got = (a16 @ xs).float()
+    want = adj @ xs.float()
+    err = float((got - want).norm() / want.norm())
+    check(err <= 1e-2, f"dense product: relative L2 {err} against f32")
+    flops = 2 * N_NODES * N_NODES * NHID
+    prod_bytes = 2 * N_NODES * N_NODES + 2 * 2 * N_NODES * NHID
+    row = dict(
+        nodes=N_NODES, q=Q, max_multiplicity=float(adj.max()),
+        build_ms=cuda_ms(torch, lambda: dense_adj(s, r, N_NODES,
+                                                  valid=valid)),
+        build_graph_ms=graph_ms(torch, lambda: dense_adj(s, r, N_NODES,
+                                                         valid=valid)),
+        build_k2_ms=cuda_ms(torch, k2_build),
+        build_k2_graph_ms=graph_ms(torch, k2_build),
+        build_bound_ms=build_bytes / HBM_BPS * 1e3, build_bound_by="bytes",
+        build="index_add_ of the validities at r*N+s into a zeroed "
+              "(N*N,) f32 buffer",
+        cast_ms=cuda_ms(torch, lambda: adj.to(torch.bfloat16)),
+        product_ms=cuda_ms(torch, lambda: a16 @ xs),
+        product_graph_ms=graph_ms(torch, lambda: a16 @ xs),
+        product_shape=f"({N_NODES},{N_NODES})@({N_NODES},{NHID}) bf16",
+        product_rel_l2_err=err,
+        product_bound_ms=max(flops / BF16_FLOPS,
+                             prod_bytes / HBM_BPS) * 1e3,
+        product_bound_by=("operations" if flops / BF16_FLOPS
+                          > prod_bytes / HBM_BPS else "bytes"),
+        k1_q200k_f256_ms=k1["ms"], k1_q200k_f256_device_ms=k1["device_ms"])
+    row["product_bound_share"] = (row["product_bound_ms"]
+                                  / row["product_graph_ms"])
+    row["build_bound_share"] = row["build_bound_ms"] / row["build_graph_ms"]
+    emit("dense_ops", **row)
+
+
+def phase_dense(torch, g, kernels, sparse):
+    """dense_subgraph='on' on the bench partition ``g`` for each of
+    DENSE_PATHS: the ``_train_path`` of the train phase (warm-up, one
+    launch-counted step under no_host_sync held to ``dense_launches``,
+    timed steps, eager and graphed, a ``profile`` line per route) as a
+    ``dense`` line; a ``dense_routes`` line of K1 and K2 per step on each
+    route (``sparse``: the train and models phases' counted launches);
+    then the parity checks (``_dense_parity``) and the two operations'
+    times (``_dense_ops``). Returns {"dense <path>": launches}."""
+    launches, cfgs = {}, {}
+    for name, (pipeline, gnn) in DENSE_PATHS.items():
+        cfgs[name] = bench_config(**PIPELINES[pipeline][0], GNN=gnn,
+                                  dense_subgraph="on")
+        launches[f"dense {name}"] = _train_path(
+            torch, g, name, cfgs[name], PIPELINE_STEPS,
+            dense_launches(pipeline, gnn), phase="dense")
+        torch.cuda.empty_cache()
+    off = {"hybrid_rescore": sparse["hybrid_rescore"],
+           "two_pass": sparse["two_pass"],
+           "GAT+GCN": sparse["model GAT+GCN"]}
+    emit("dense_routes", per_step={
+        name: {route: {k: n.get(k, 0) for k in ROWS}
+               for route, n in (("off", off[name]),
+                                ("on", launches[f"dense {name}"]))}
+        for name in DENSE_PATHS},
+        derived="off: PIPELINES / model_launches; on: dense_launches")
+    for name in DENSE_PATHS:
+        _dense_parity(torch, g, name, cfgs[name])
+        torch.cuda.empty_cache()
+    _dense_ops(torch, g, kernels["scatter_add"])
+    return launches
+
+
 # the experiment phase: a Reddit-shaped graph (the port's
 # community_sbm_graph at Reddit's widths: 602 features, 41 classes,
 # deg=330) small enough for ~5 native partitions of ~1M kept edges at
@@ -1748,6 +1978,11 @@ EXPERIMENT_F1_ATOL = 5e-3
 # of the eager runs' own spread; its F1 limit is the GCN pair's.
 MODEL_EXPERIMENT_LOSS_RTOL = {"GCN+GCN": EXPERIMENT_LOSS_RTOL,
                               "GAT+GSAGE": 2e-2}
+# Scripts/run_memory.sh's flags that experiment_args lacks, and
+# --debug_checks: the experiment line of the diagnostics
+MEMORY_FLAGS = ("--hybrid_checkpoint", "True", "--gpu_profile", "True",
+                "--debug_checks", "True", "--save_csv", "false")
+SEGMENTS = ("edge_mlp_pre", "edge_score", "gnn_forward", "backward")
 HEADS = ("score_head_sampled", "score_head_sampled_banded",
          "score_head_bwd", "score_head_tiles")
 ROWS = ("scatter_add", "segment_sum_scalar")
@@ -1757,9 +1992,13 @@ QUALITY_KW = dict(dataset="SyntheticSBMLow", pipeline="hybrid", GNN="GCN",
                   edge_mlp_type="GCN", conditional=True, reg1=True,
                   reg2=True, sample_perc=0.2, nhid=64, epochs=60, runs=1,
                   save_csv=False, num_samples_eval=3, convergence=0.0)
-# the JAX package's F1s on a TPU (commit e0228ac): the reference's quality,
-# not numbers of the port
-QUALITY_TPU_REFERENCE = dict(learned=0.8225, random=0.406, full=0.525)
+# the JAX package's final test F1s in this configuration (QUALITY_KW, the
+# driver's seed 42), on the CPU at commit cfd9fb2: the reference's quality,
+# not numbers of the port (tools/quality_reference.py)
+QUALITY_JAX_REFERENCE = dict(
+    f1=dict(learned=0.70375, random=0.2825, full=0.3825),
+    source="JAX package, CPU, commit cfd9fb2, seed 42, QUALITY_KW "
+           "(tools/quality_reference.py)")
 
 
 def experiment_dataset():
@@ -2094,8 +2333,73 @@ def phase_experiment(torch):
             paths[f"experiment_learned_{model}" + (
                 "" if route == "graphed" else "_eager")] = launches
         _compare_routes("learned", runs["graphed"], runs["eager"], model)
+        paths["experiment_learned_memory_flags"] = _memory_flags_run(
+            torch, ds, results_dir, results["learned"])
     torch.cuda.empty_cache()
     return paths
+
+
+def _memory_flags_run(torch, ds, results_dir, plain):
+    """Learned on the cell with Scripts/run_memory.sh's flags and
+    --debug_checks (graphed): every epoch's ``[gpu-profile]`` line holds
+    the four segments' ms and MiB, finite and >= 0, some MiB > 0; the
+    ``[stats]`` peak is not lowered by the profiler's resets of the peak
+    statistics (at least ``plain``'s, the same cell's graphed learned run
+    without the flags, whose work this run repeats before its first
+    profile). An ``experiment`` line; returns the launches."""
+    from sgs_gnn_tpu_torch.run.cli import config_from_args
+    from sgs_gnn_tpu_torch.utils import debug
+    cfg = config_from_args(experiment_args("learned", results_dir,
+                                           extra=MEMORY_FLAGS))
+    check(cfg.gpu_profile and cfg.debug_checks and cfg.hybrid_checkpoint,
+          f"memory flags parsed as {cfg}")
+    validated, validate = [], debug.validate_graph
+
+    def counted(g, name="graph"):
+        validated.append(name)
+        return validate(g, name)
+    debug.validate_graph = counted
+    try:
+        res, lines, per_epoch, launches, seconds = run_experiment_counted(
+            torch, cfg, ds, "memory flags")
+    finally:
+        debug.validate_graph = validate
+    check(len(validated) == res.plan["parts"],
+          f"memory flags: validated {validated}, {res.plan['parts']} parts")
+    _check_result("memory flags", res)
+    _check_launches("learned", "graphed", launches)
+    prof = [ln for ln in lines if ln.startswith("[gpu-profile]")]
+    check(len(prof) == len(res.losses),
+          f"memory flags: {len(prof)} [gpu-profile] lines in "
+          f"{len(res.losses)} epochs")
+    segs = []
+    for ln in prof:
+        fields = dict(kv.split("=", 1) for kv in ln.split()[1:])
+        seg = {k: {u: float(fields[f"{k}_{u}"]) for u in ("ms", "mb")}
+               for k in SEGMENTS}
+        check(all(np.isfinite(v[u]) and v[u] >= 0 for v in seg.values()
+                  for u in ("ms", "mb")), f"memory flags: {ln}")
+        check(any(v["mb"] > 0 for v in seg.values()),
+              f"memory flags: no segment allocated: {ln}")
+        segs.append(dict(segments=seg, allocated_mb=float(
+            fields["allocated_mb"]), peak_mb=float(fields["peak_mb"])))
+    stats = next(ln for ln in lines if ln.startswith("[stats]"))
+    # the same work as ``plain`` up to the first profile, then more; 1% for
+    # the allocator's rounding (a peak lowered by the resets would be the
+    # last segment's, a fraction of it)
+    check(res.peak_device_mem_mb >= 0.99 * plain.peak_device_mem_mb,
+          f"memory flags: [stats] peak {res.peak_device_mem_mb} MiB below "
+          f"the unprofiled run's {plain.peak_device_mem_mb}")
+    emit("experiment", mode="learned_memory_flags", route=res.epoch_route,
+         flags=list(MEMORY_FLAGS), epoch_s=res.epoch_times,
+         eval_ms=[t * 1e3 for t in res.eval_times], run_s=seconds,
+         losses=res.losses, gpu_profile=segs, gpu_profile_lines=prof,
+         peak_device_mem_mb=res.peak_device_mem_mb,
+         unprofiled_peak_device_mem_mb=plain.peak_device_mem_mb,
+         stats=stats, launches_per_epoch=per_epoch, launches=launches,
+         validated_batches=validated)
+    torch.cuda.empty_cache()
+    return launches
 
 
 def phase_quality(torch):
@@ -2120,7 +2424,7 @@ def phase_quality(torch):
     emit("quality", config=QUALITY_KW, he=ds.He, test_f1=f1, detail=detail,
          margins=dict(learned_minus_random=f1["learned"] - f1["random"],
                       learned_minus_full=f1["learned"] - f1["full"]),
-         tpu_reference_f1=QUALITY_TPU_REFERENCE)
+         jax_reference=QUALITY_JAX_REFERENCE)
     check(f1["learned"] > f1["random"] + 0.2,
           f"quality: learned {f1['learned']} vs random {f1['random']}")
     check(f1["learned"] > f1["full"] + 0.1,
@@ -2185,6 +2489,7 @@ def main():
     g = train_graph(torch, arrays)
     paths.update(phase_train(torch, arrays, g))
     paths.update(phase_models(torch, arrays, g))
+    paths.update(phase_dense(torch, g, kernels, paths))
     del g
     torch.cuda.empty_cache()
     paths.update(phase_experiment(torch))

@@ -3,13 +3,14 @@
 The port keeps its own copy (it imports nothing of ``sgs_gnn_tpu``): the
 same frozen dataclass, the same names and defaults, the same ``validate``.
 Fields that select TPU-only mechanisms (``prng_impl``, ``approx_topk``,
-``topk_bf16``, ``dense_subgraph``, ``tile_index``, ``scan_epoch``) are
-kept so that configurations stay interchangeable. The
+``topk_bf16``) are kept so that configurations stay interchangeable. The
 port reads ``degree_bias_coef``, ``num_samples_eval``, ``mode``,
 ``pipeline``, ``hybrid_rescore``, ``conditional``, ``sparse_edge_mlp``,
 ``reg1``, ``reg2`` and their coefficients, ``sorted_head``, ``lr``,
 ``weight_decay``, ``t_init``/``t_min``, ``nhid``, ``drop_rate``, ``GNN``,
-``edge_mlp_type`` and ``dtype``.
+``edge_mlp_type``, ``dtype``, ``tile_index``, ``scan_epoch``,
+``dense_subgraph`` and ``dense_threshold`` (``ops/dense_graph.py``), and
+the diagnostics ``gpu_profile``, ``debug_checks`` and ``plot_curve``.
 """
 from __future__ import annotations
 

@@ -8,9 +8,13 @@ accumulate in float32, with the JAX layers' cast points. Edge weights
 follow PyG: GCN and Cheb use them in the normalisation, GIN and GAT
 ignore them. Gathers are ``gather_rows`` (VJP: K1, or K2 for an (N,)
 table), sums ``ops.scatter`` (K1 for rows, K2 for scalars) or
-``ops.segment``; every index stays int32. The JAX layers' halo hooks
-(``exchange``, ``edge_mask``) and their densified-subgraph route
-(``DenseEdges``) are not ported: these layers take the COO route.
+``ops.segment``; every index stays int32.
+
+A densified subgraph (``ops.dense_graph.DenseEdges``) may be passed in
+place of ``senders``, with ``receivers`` None: each layer then aggregates
+with (N, N) products, as the JAX layers' ``DenseEdges`` branches do, with
+their cast points. The JAX layers' halo hooks (``exchange``,
+``edge_mask``) are not ported.
 
 Initialisers follow flax: ``glorot_uniform`` where the JAX layer names it,
 otherwise ``nn.Dense``'s ``lecun_normal`` with a zero bias.
@@ -22,6 +26,7 @@ import math
 import torch
 from torch import nn
 
+from ..ops.dense_graph import DenseEdges
 from ..ops.edge_gather import gather_rows
 from ..ops.gcn_norm import gcn_norm
 from ..ops.scatter import scatter_add, segment_sum_scalar
@@ -96,15 +101,23 @@ class GCNConv(nn.Module):
 
     def forward(self, x, senders, receivers, edge_weight=None):
         n = x.shape[0]
-        w_deg = (torch.ones(senders.shape[0], dtype=torch.float32,
-                            device=x.device)
-                 if edge_weight is None else edge_weight.float())
-        deg = segment_sum_scalar(w_deg, receivers, n) + 1.0
+        dense = isinstance(senders, DenseEdges)
+        if dense:
+            # weighted in-degree: a row sum
+            deg = senders.adj.sum(dim=1) + 1.0
+        else:
+            w_deg = (torch.ones(senders.shape[0], dtype=torch.float32,
+                                device=x.device)
+                     if edge_weight is None else edge_weight.float())
+            deg = segment_sum_scalar(w_deg, receivers, n) + 1.0
         dis = torch.where(deg > 0, torch.rsqrt(deg.clamp(min=1e-32)), 0.0)
         xw = linear(x, self.lin, self.dtype)
         xs = xw * dis[:, None].to(xw.dtype)
-        agg = spmm(senders, receivers, edge_weight, xs, n,
-                   backend=self.backend)
+        if dense:
+            agg = senders.adj.to(xw.dtype) @ xs
+        else:
+            agg = spmm(senders, receivers, edge_weight, xs, n,
+                       backend=self.backend)
         out = (agg.float() * dis[:, None]
                + (dis * dis)[:, None] * xw.float())
         return out + self.bias
@@ -124,7 +137,12 @@ class SAGEConv(nn.Module):
         self.lin_r = dense(in_features, features, False, generator)
 
     def forward(self, x, senders, receivers, edge_weight=None):
-        agg = segment_mean(gather_rows(x, senders), receivers, x.shape[0])
+        if isinstance(senders, DenseEdges):
+            cnt = senders.adj.sum(dim=1, keepdim=True).clamp(min=1.0)
+            agg = (senders.adj.to(x.dtype) @ x).float() / cnt
+        else:
+            agg = segment_mean(gather_rows(x, senders), receivers,
+                               x.shape[0])
         out = linear(agg, self.lin_l, self.dtype) \
             + linear(x, self.lin_r, self.dtype)
         return out.float()
@@ -136,7 +154,8 @@ class GATConv(nn.Module):
     in the compute dtype and kept in f32; the attention logits of the E+N
     edges (self-loops concatenated, int32) are softmaxed per destination
     and head (``segment_softmax``), and the (E+N, H·F) f32 messages are
-    summed by K1. ``edge_weight`` is ignored."""
+    summed by K1; over a ``DenseEdges`` the softmax is a masked dense row
+    softmax (``_dense``). ``edge_weight`` is ignored."""
 
     def __init__(self, in_features: int, features: int, heads: int = 1,
                  concat: bool = True, negative_slope: float = 0.2,
@@ -164,6 +183,35 @@ class GATConv(nn.Module):
         xw3 = xw.reshape(n, h, f)
         alpha_src = (xw3 * self.att_src).sum(-1)                 # (N, H)
         alpha_dst = (xw3 * self.att_dst).sum(-1)
+        if isinstance(senders, DenseEdges):
+            out = self._dense(senders.adj, alpha_src, alpha_dst, xw3)
+        else:
+            out = self._sparse(senders, receivers, alpha_src, alpha_dst,
+                               xw)
+        if not self.concat:
+            out = out.reshape(n, h, f).mean(dim=1)
+        return out + self.bias
+
+    def _dense(self, adj, alpha_src, alpha_dst, xw3):
+        """The attention of a densified subgraph: logits a_src[s] +
+        a_dst[r] over (N, N) per head, a row softmax masked to the
+        pattern and weighted by the multiplicities ``adj + I`` (duplicate
+        edges count apart and the self-loop adds one, as in the segment
+        form). Every row holds its self-loop, so no row is all -inf."""
+        n, h, f = xw3.shape
+        cnt = adj + torch.eye(n, dtype=adj.dtype, device=adj.device)
+        lg = nn.functional.leaky_relu(
+            alpha_src.t()[:, None, :] + alpha_dst.t()[:, :, None],
+            self.negative_slope)                              # (H, N r, N s)
+        lg = torch.where(cnt > 0, lg, -torch.inf)
+        w = cnt * torch.exp(lg - lg.amax(dim=2, keepdim=True))
+        w = w / w.sum(dim=2, keepdim=True).clamp(min=1e-16)
+        out = torch.bmm(w.to(xw3.dtype), xw3.transpose(0, 1))  # (H, N, F)
+        return out.transpose(0, 1).reshape(n, h * f)
+
+    def _sparse(self, senders, receivers, alpha_src, alpha_dst, xw):
+        n, h = alpha_src.shape
+        f = xw.shape[1] // h
         if h == 1:
             # one head: (N,) tables, so the sums and VJPs are K2's
             alpha_src, alpha_dst = alpha_src[:, 0], alpha_dst[:, 0]
@@ -175,10 +223,7 @@ class GATConv(nn.Module):
             self.negative_slope)
         alpha = segment_softmax(logits, r, n).reshape(-1, h, 1)  # (E', H, 1)
         msgs = gather_rows(xw, s).reshape(-1, h, f) * alpha
-        out = scatter_add(msgs.reshape(-1, h * f), r, n)
-        if not self.concat:
-            out = out.reshape(n, h, f).mean(dim=1)
-        return out + self.bias
+        return scatter_add(msgs.reshape(-1, h * f), r, n)
 
 
 class GINConv(nn.Module):
@@ -195,7 +240,11 @@ class GINConv(nn.Module):
         self.mlp_lin2 = dense(hidden, features, True, generator)
 
     def forward(self, x, senders, receivers, edge_weight=None):
-        z = x + spmm(senders, receivers, None, x, x.shape[0])
+        if isinstance(senders, DenseEdges):
+            agg = (senders.adj.to(x.dtype) @ x).float()
+        else:
+            agg = spmm(senders, receivers, None, x, x.shape[0])
+        z = x + agg
         z = torch.relu(linear(z, self.mlp_lin1, self.dtype))
         return linear(z, self.mlp_lin2, self.dtype).float()
 
@@ -223,11 +272,25 @@ class ChebConv(nn.Module):
         out = linear(x, self.lins_0, self.dtype).float()
         if self.K > 1:
             n = x.shape[0]
-            s, r, w = gcn_norm(senders, receivers, edge_weight, n,
-                               add_loops=False)
+            if isinstance(senders, DenseEdges):
+                # D^-1/2 A D^-1/2 densely: rows and columns scaled
+                adj = senders.adj
+                deg = adj.sum(dim=1)
+                dis = torch.where(deg > 0,
+                                  torch.rsqrt(deg.clamp(min=1e-32)),
+                                  0.0)[:, None]
+
+                def a_norm(v):
+                    return dis * (adj @ (dis * v))
+            else:
+                s, r, w = gcn_norm(senders, receivers, edge_weight, n,
+                                   add_loops=False)
+
+                def a_norm(v):
+                    return spmm(s, r, w, v, n)
 
             def l_hat(v):
-                return (2.0 / self.lambda_max) * (v - spmm(s, r, w, v, n)) - v
+                return (2.0 / self.lambda_max) * (v - a_norm(v)) - v
 
             tx_prev, tx = x, l_hat(x)
             out = out + linear(tx, self.lins_1, torch.float32)

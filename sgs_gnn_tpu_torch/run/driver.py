@@ -34,13 +34,20 @@ epoch and the eval are replays of CUDA graphs (``make_scan_epoch_step``,
 the first eager step of the pair, sharing the class's input buffers and
 memory pool); else (``'off'``, one batch, or the CPU) the per-batch loop of
 eager steps. Both give the same updates from the same draws. A capture
-that fails raises. The ``[fastpath]`` lines name the route and why, and
-after each run the graphs captured and replayed.
+that fails raises. The ``[fastpath]`` lines name the tile kernel's and the
+dense-subgraph route's engagement, the epoch's route, and why; after each
+run they name the graphs captured and replayed.
+
+The diagnostics, as in the JAX driver: ``debug_checks`` validates every
+batch after preparation (``utils/debug.py``); ``gpu_profile`` profiles
+the first batch with train nodes after each epoch's updates, eagerly, in
+the reference's four segments (``utils/profiler.py``; a ``[gpu-profile]``
+line per epoch); ``plot_curve`` saves each run's F1 curves to
+``results_dir`` (``viz/curves.py``).
 
 What the JAX driver has and this port does not yet carry raises
 ``NotImplementedError`` naming its ROADMAP.md item: ``data_parallel``,
-``halo``, ``multihost`` (§1 item 8), ``gpu_profile``, ``debug_checks``,
-``plot_curve`` (item 9). Every backbone x scorer pair runs.
+``halo``, ``multihost`` (§1 item 8). Every backbone x scorer pair runs.
 """
 from __future__ import annotations
 
@@ -64,6 +71,8 @@ from ..eval import (accumulate_eval_device, aggregate_eval, make_eval_step,
                     make_scan_eval_step)
 from ..eval.evaluate import ScanEvalStep
 from ..models import get_model
+from ..ops.dense_graph import (AUTO_DEVICE_TYPES, dense_supported,
+                               use_dense_subgraph)
 from ..train import DualOptimizer, make_scan_epoch_step, make_train_step
 from ..train.pipelines import ScanEpochStep
 from .checkpoint import TrainState, load_checkpoint, save_checkpoint
@@ -115,9 +124,6 @@ def check_ported(cfg: Config) -> None:
         raise _roadmap_item("halo=True", 8)
     if cfg.multihost:
         raise _roadmap_item("multihost=True", 8)
-    for flag in ("gpu_profile", "debug_checks", "plot_curve"):
-        if getattr(cfg, flag):
-            raise _roadmap_item(f"{flag}=True", 9)
 
 
 def want_tile_index(cfg: Config, device) -> bool:
@@ -180,10 +186,36 @@ def epoch_route(cfg: Config, n_batches: int, device):
     return "graphed", f"scan_epoch={cfg.scan_epoch}"
 
 
-def log_fastpath_status(cfg: Config, batches, device, log_fn,
+def dense_status(cfg: Config, n: int, q: int, device) -> str:
+    """The ``[fastpath] dense_subgraph=`` value: whether the learned step
+    densifies its subgraphs of ``n`` nodes and q edges on ``device``
+    (``ops/dense_graph.py``), and why, in the JAX driver's words."""
+    dev = torch.device(device)
+    if cfg.mode != "learned":
+        return "off (learned mode only)"
+    if not (cfg.conditional or cfg.sparse_edge_mlp):
+        return "off (needs conditional or sparse_edge_mlp)"
+    if not dense_supported(cfg.GNN, cfg.edge_mlp_type):
+        return (f"off (no dense route for GNN={cfg.GNN}/"
+                f"scorer={cfg.edge_mlp_type})")
+    if use_dense_subgraph(cfg, n, q, dev):
+        return (f"on (N={n}: subgraph aggregation as (N,N) matrix "
+                "products)")
+    if cfg.dense_subgraph == "off":
+        return "off (--dense_subgraph off)"
+    if n > cfg.dense_threshold:
+        return f"off (N={n} > dense_threshold={cfg.dense_threshold})"
+    if cfg.dense_subgraph == "auto" and dev.type not in AUTO_DEVICE_TYPES:
+        return (f"off (dense_subgraph=auto on device={dev.type}: JAX's "
+                "auto densifies on a TPU only; --dense_subgraph on "
+                "forces it)")
+    return f"off (E={q} < 4N: too sparse to amortize the adjacency build)"
+
+
+def log_fastpath_status(cfg: Config, batches, q: int, device, log_fn,
                         n_trained: int = 0) -> None:
-    """Whether the tile score kernel (K6) is engaged and why not, how the
-    epoch runs and why, and the device."""
+    """Whether the tile score kernel (K6) and the dense-subgraph route are
+    engaged and why not, how the epoch runs and why, and the device."""
     g0 = batches[0]
     dev = torch.device(device)
     if not (cfg.mode == "learned" and cfg.pipeline == "hybrid"
@@ -203,6 +235,8 @@ def log_fastpath_status(cfg: Config, batches, device, log_fn,
         tile_s = (f"on (t={g0.tile_t} b={g0.tile_b} slots={slots} "
                   f"overhead={slots / max(g0.num_edges, 1):.2f}x)")
     log_fn(f"[fastpath] tile_score_kernel={tile_s}")
+    log_fn("[fastpath] dense_subgraph="
+           + dense_status(cfg, g0.num_nodes, q, dev))
     route, why = epoch_route(cfg, len(batches), dev)
     if route == "graphed":
         shapes = sorted({g.num_edges for g in batches}, reverse=True)
@@ -295,6 +329,10 @@ def run_experiment(cfg: Config, ds: Optional[HostDataset] = None,
     if ds is None:
         ds = get_dataset(cfg)
     batches, q, partitioner = prepare_batches(cfg, ds, dev)
+    if cfg.debug_checks:
+        from ..utils.debug import validate_graph
+        for i, b in enumerate(batches):
+            validate_graph(b, name=f"batch{i}")
     n_batches = len(batches)
     # host facts of each batch, read once: the per-batch decisions never
     # wait for the card
@@ -308,6 +346,9 @@ def run_experiment(cfg: Config, ds: Optional[HostDataset] = None,
     class_members = [[i for i in range(n_batches) if shape_of[i] == cs]
                      for cs in class_shapes]
     n_trained = sum(1 for a in plan if a)
+    # the batch --gpu_profile profiles: the first with train nodes, so its
+    # backward segment is a real one
+    profile_bi = next((i for i in range(n_batches) if has_train[i]), 0)
     batch_plan = dict(parts=n_batches, q=q, partitioner=partitioner,
                       shape_classes=[[len(m), cs] for m, cs in
                                      zip(class_members, class_shapes)],
@@ -321,7 +362,7 @@ def run_experiment(cfg: Config, ds: Optional[HostDataset] = None,
                f"big={batch_plan['big']} small={batch_plan['small']} "
                f"skipped={batch_plan['skipped']} "
                f"valid_edges={batch_plan['valid_edges']}")
-        log_fastpath_status(cfg, batches, dev, log_fn, n_trained)
+        log_fastpath_status(cfg, batches, q, dev, log_fn, n_trained)
     route, _ = epoch_route(cfg, n_batches, dev)
 
     results: List[RunResult] = []
@@ -343,6 +384,10 @@ def run_experiment(cfg: Config, ds: Optional[HostDataset] = None,
             evals = {0: make_eval_step(cfg, model, q),
                      1: make_eval_step(cfg, model, q, force_small=True)}
         gen = torch.Generator(device=dev)
+        seg_profile = None
+        if cfg.gpu_profile:
+            from ..utils.profiler import make_segment_profiler
+            seg_profile = make_segment_profiler(cfg, model, q)
 
         res = RunResult(plan=batch_plan, epoch_route=route)
         best_state = None
@@ -394,6 +439,11 @@ def run_experiment(cfg: Config, ds: Optional[HostDataset] = None,
             if cfg.stats and cfg.log and epoch < 16:
                 log_fn(f"[epoch-time] epoch={epoch} "
                        f"sec={epoch_times[-1]:.3f}")
+            if seg_profile is not None:
+                _log_segment_profile(seg_profile, batches[profile_bi], gen,
+                                     batch_seed(cfg.seed, run, 2**29 + epoch),
+                                     epoch, epoch_times[-1], n_batches,
+                                     log_fn)
 
             if cfg.eval:
                 t1 = time.perf_counter()
@@ -482,6 +532,11 @@ def run_experiment(cfg: Config, ds: Optional[HostDataset] = None,
             sum(valid_e) / max(float(np.median(epoch_times)), 1e-9)
             if epoch_times else 0.0)
         res.peak_device_mem_mb = _device_peak_mem_mb(dev)
+        if seg_profile is not None and res.peak_device_mem_mb is not None:
+            # the profiler's resets of the peak statistics: the run's peak
+            # is the larger of the peaks read before and after them
+            res.peak_device_mem_mb = max(res.peak_device_mem_mb,
+                                         seg_profile.peak_mb)
         if cfg.stats:
             mem = res.peak_device_mem_mb
             mem_s = f"{mem:.2f}" if mem is not None else "NA"
@@ -492,12 +547,38 @@ def run_experiment(cfg: Config, ds: Optional[HostDataset] = None,
                    f"peak_device_mem_mb={mem_s} "
                    f"best_val_f1={res.final_val_f1:.4f} "
                    f"best_test_f1={res.final_test_f1:.4f}")
+        if cfg.plot_curve and res.train_curve:
+            from ..viz import plot_learning_curves
+            os.makedirs(cfg.results_dir, exist_ok=True)
+            plot_learning_curves(
+                run, res.train_curve, res.val_curve, res.test_curve,
+                path=os.path.join(cfg.results_dir,
+                                  f"curves_{ds.name}_{cfg.mode}_run{run}.png"))
         if cfg.save_csv:
             _append_csv(cfg, ds, run, res)
         results.append(res)
 
     _summary(cfg, results, log_fn)
     return results
+
+
+def _log_segment_profile(profile, g, gen, seed, epoch, epoch_s, n_batches,
+                         log_fn):
+    """The ``[gpu-profile]`` line of an epoch (the JAX driver's format):
+    ``profile``'s segments on batch ``g``, its draws from ``gen`` reseeded
+    with ``seed``, and the card's memory (peak: the run's)."""
+    from ..utils.profiler import device_memory_mb
+    gen.manual_seed(seed)
+    segs, seg_mb = profile(g, gen)
+    mem = device_memory_mb(g.x.device)
+    mem_s = (f"allocated_mb={mem['allocated_mb']:.1f} "
+             f"peak_mb={max(mem['peak_mb'], profile.peak_mb):.1f}"
+             if mem else "mem=n/a")
+    seg_s = " ".join(f"{k}_ms={v:.2f}" for k, v in segs.items())
+    mb_s = " ".join(f"{k}_mb={v:.1f}" for k, v in seg_mb.items())
+    log_fn(f"[gpu-profile] epoch={epoch} "
+           f"step_time_ms={epoch_s / max(n_batches, 1) * 1e3:.2f} "
+           f"batches={n_batches} {seg_s} {mb_s} {mem_s}")
 
 
 def _device_peak_mem_mb(dev: torch.device) -> Optional[float]:

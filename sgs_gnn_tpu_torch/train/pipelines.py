@@ -27,6 +27,14 @@ the scorer into the q sampled edges' weights:
     receiver-sorted edge ids otherwise, unless ``sorted_head='off'``); the
     grad-enabled head on them (K3 forward, K5 backward).
 
+With ``dense_subgraph`` (``ops/dense_graph.py``: 'on', or 'auto' where
+it engages) and a random subgraph, the step densifies it into an (N, N)
+adjacency (padding selections zeroed): the scorer's encoder and the
+conditional gate's random forward aggregate with (N, N) products instead
+of K1 and K2; two_pass's re-scoring pass densifies the winners (padding
+selections kept, as in JAX). The learned backbone's forward on the q
+weighted winners stays sparse.
+
 Endpoints, validity and reg1 flags of the winners come from one packed
 aux-row gather. The shared tail: the backbone on the sampled edges
 weighted by the probabilities, masked CE, reg1 (packed flags), reg2, and
@@ -38,8 +46,8 @@ In PyTorch idiom the module holds the parameters, the optimizer updates
 them in place, and the step takes ``(graph, epoch, generator)``: every
 random draw of the step comes from that ``torch.Generator``, on the
 graph's device. Nothing in the step reads a value back to the host. The
-JAX package's TPU gates on this path (``dense_subgraph``, the h width
-limit of the tile kernel, fused-head VMEM budgets) are not copied.
+JAX package's TPU gates on this path (the h width limit of the tile
+kernel, fused-head VMEM budgets) are not copied.
 
 The baseline modes (random, edge, full) run one backbone forward on a
 uniform q-subset (``random_edges``), a degree-prior q-subset
@@ -62,6 +70,7 @@ from ..core.config import Config
 from ..core.graph import Graph
 from ..core.graphed import Graphs, ShapeClasses
 from ..models.scorers import draw_seed
+from ..ops.dense_graph import dense_adj, use_dense_subgraph
 from ..sparsify.sampling import (random_edges, sample_edges,
                                  sample_prior_edges, temperature_at)
 from .losses import (assortative_bce_flags, consistency_loss,
@@ -145,10 +154,16 @@ def make_learned_loss(cfg: Config, model, q: int):
 
     def loss_fn(g: Graph, generator: torch.Generator):
         dev = g.x.device
+        n = g.num_nodes
         use_rand = cfg.conditional or cfg.sparse_edge_mlp
+        dense = use_rand and use_dense_subgraph(cfg, n, q, dev)
         if use_rand:
             rand_idx = sample_prior_edges(generator, g.prob, q, g.edge_mask)
-            rand_s, rand_r, _, _ = _aux_columns(g.edge_aux[rand_idx])
+            rand_s, rand_r, rand_valid, _ = _aux_columns(
+                g.edge_aux[rand_idx])
+            if dense:
+                rand_s, rand_r = dense_adj(rand_s, rand_r, n,
+                                           valid=rand_valid), None
             prop_s, prop_r = rand_s, rand_r
         else:
             rand_s = rand_r = None
@@ -165,8 +180,12 @@ def make_learned_loss(cfg: Config, model, q: int):
             idx, sorted_side = _sample_sorted(cfg, g, generator, probs_full,
                                               q)
             s_s, s_r, sel_valid, reg1_flags = _aux_columns(g.edge_aux[idx])
+            # densified without validity, as in JAX: the padding
+            # selections' self-loops on the pad node count
+            prop = ((dense_adj(s_s, s_r, n), None) if dense
+                    else (s_s, s_r))
             weights = model.score_edges(
-                g.x, s_s, s_r, s_s, s_r, deterministic=False,
+                g.x, *prop, s_s, s_r, deterministic=False,
                 score_sorted_side=sorted_side, generator=generator)
         elif pipeline == "straight_through":
             # one grad-enabled pass over every edge; the straight-through

@@ -960,6 +960,11 @@ GRAPHED_KW = {
         edge_mlp_type="GSAGE"),
     "two_pass": dict(mode="learned", pipeline="two_pass", conditional=True,
                      sparse_edge_mlp=True, reg1=True, reg2=True),
+    # the dense-subgraph route under capture: (N, N) builds and products
+    # from the class's pool
+    "hybrid_rescore_dense": dict(mode="learned", pipeline="hybrid",
+                                 conditional=True, sparse_edge_mlp=True,
+                                 reg1=True, reg2=True, dense_subgraph="on"),
     "random": dict(mode="random"),
     "full": dict(mode="full"),
 }
@@ -1185,6 +1190,109 @@ def test_resumed_state_replays_into_graphs_captured_before(card):
     assert steps.graphs.replays == replays + sum(map(bool, plan))
     assert again[0][0] == pytest.approx(first[0][0], rel=LOSS_RTOL)
     _close_rel([p.detach() for p in tm.parameters()], after, "resumed")
+
+
+# ------------------------------------------------- the dense-subgraph route
+#
+# One learned step, dense_subgraph 'on' against 'off', from the same
+# parameters and generator seed (the routes draw the same samples), no
+# dropout. In f32 the routes differ by the order of f32 sums (K1/K2
+# atomics against the products'): the layer tests' limits, 1e-5 on the
+# loss and 1e-4 relative L2 per gradient. In bf16 both routes round each
+# aggregation's output to bf16, so the order of the f32 sums can flip a
+# rounding: chip_smoke.py's grad_check limits, 1% and 5%. Launches per
+# step (derived as chip_smoke.py's ``model_launches``): the scorer's GCN
+# encoder (K1 4, K2 2) and the random forward (GCN K1 4, K2 2; GAT K1 4,
+# K2 8) leave K1 and K2; the learned backbone and reg2 (K1 2) stay.
+DENSE_CASES = {
+    "hybrid_gcn": (dict(pipeline="hybrid"), dict(scatter_add=6,
+                                                 segment_sum_scalar=2)),
+    "two_pass_gcn": (dict(pipeline="two_pass"), dict(scatter_add=6,
+                                                     segment_sum_scalar=2)),
+    "hybrid_gat": (dict(pipeline="hybrid", GNN="GAT"),
+                   dict(scatter_add=6, segment_sum_scalar=8)),
+}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", list(DENSE_CASES))
+def test_dense_route_on_card_matches_sparse(card, case, dtype):
+    from sgs_gnn_tpu_torch import Config, Graph, get_model
+    from sgs_gnn_tpu_torch.data import degree_prior
+    from sgs_gnn_tpu_torch.train.pipelines import make_learned_loss
+    kw, rows = DENSE_CASES[case]
+    rng = np.random.default_rng(3)
+    n, e, f, c, q = 700, 40_000, 48, 6, 8_000
+    ei = rng.integers(0, n, (2, e)).astype(np.int32)
+    train = rng.random(n) < 0.6
+    g = Graph.build(rng.normal(size=(n, f)).astype(np.float32), ei,
+                    rng.integers(0, c, n).astype(np.int32), train, ~train,
+                    None, prob=degree_prior(ei[0], ei[1], n), num_classes=c,
+                    sort_by_receiver=True, device=card)
+    out = {}
+    for dense in ("off", "on"):
+        cfg = Config(mode="learned", conditional=True, sparse_edge_mlp=True,
+                     reg1=True, reg2=True, nhid=64, drop_rate=0.0,
+                     dtype=dtype, dense_subgraph=dense,
+                     edge_mlp_type="GCN", **kw)
+        tm = get_model(cfg.GNN, f, cfg.nhid, c, 0.0, "GCN", dtype=dtype,
+                       device=card, generator=torch.Generator().manual_seed(0))
+        LAUNCHES.clear()
+        loss, _ = make_learned_loss(cfg, tm, q)(
+            g, torch.Generator(device=card).manual_seed(1))
+        names, params = zip(*tm.named_parameters())
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        torch.cuda.synchronize()
+        out[dense] = (float(loss.detach()), {
+            k: torch.zeros_like(p) if gr is None else gr
+            for k, p, gr in zip(names, params, grads)}, dict(LAUNCHES))
+    (loss_s, g_s, l_s), (loss_d, g_d, l_d) = out["off"], out["on"]
+    assert all(l_d.get(k, 0) == v for k, v in rows.items()), l_d
+    assert l_s["scatter_add"] > l_d["scatter_add"]
+    assert {k: v for k, v in l_d.items() if k not in rows} == \
+        {k: v for k, v in l_s.items() if k not in rows}
+    loss_tol, grad_tol = (1e-5, 1e-4) if dtype == "float32" else (1e-2, 5e-2)
+    assert abs(loss_d - loss_s) <= loss_tol * abs(loss_s)
+    for k, want in g_s.items():
+        assert bool(torch.isfinite(g_d[k]).all()), k
+        if float(want.norm()) > 0:
+            assert _rel_l2(g_d[k], want.float().cpu()) <= grad_tol, k
+
+
+def test_segment_profiler_reads_memory_on_card(card):
+    """--gpu_profile on the card: every segment's peak above the
+    allocation before it is finite and >= 0, the segments that allocate
+    their outputs report > 0, and the profiler keeps the peak that its
+    resets hide."""
+    from sgs_gnn_tpu_torch import Config, Graph, get_model
+    from sgs_gnn_tpu_torch.data import degree_prior
+    from sgs_gnn_tpu_torch.utils import device_memory_mb, make_segment_profiler
+    rng = np.random.default_rng(4)
+    n, e, f, c, q = 900, 60_000, 64, 5, 12_000
+    ei = rng.integers(0, n, (2, e)).astype(np.int32)
+    train = rng.random(n) < 0.6
+    g = Graph.build(rng.normal(size=(n, f)).astype(np.float32), ei,
+                    rng.integers(0, c, n).astype(np.int32), train, ~train,
+                    None, prob=degree_prior(ei[0], ei[1], n), num_classes=c,
+                    sort_by_receiver=True, device=card)
+    cfg = Config(mode="learned", pipeline="hybrid", conditional=True,
+                 sparse_edge_mlp=True, reg1=True, reg2=True, nhid=64,
+                 dtype="bfloat16")
+    tm = get_model("GCN", f, cfg.nhid, c, cfg.drop_rate, "GCN",
+                   dtype="bfloat16", device=card,
+                   generator=torch.Generator().manual_seed(0))
+    big = torch.empty(256 * 2**20, dtype=torch.uint8, device=card)
+    del big                              # a peak of >= 256 MiB, now freed
+    peak = device_memory_mb(card)["peak_mb"]
+    assert peak >= 256
+    prof = make_segment_profiler(cfg, tm, q)
+    ms, mb = prof(g, torch.Generator(device=card).manual_seed(2))
+    assert all(v > 0 for v in ms.values()), ms
+    assert all(np.isfinite(v) and v >= 0 for v in mb.values()), mb
+    assert all(mb[k] > 0 for k in ("edge_mlp_pre", "edge_score",
+                                   "gnn_forward", "backward")), mb
+    assert device_memory_mb(card)["peak_mb"] < peak       # reset by the run
+    assert prof.peak_mb >= peak
 
 
 @pytest.mark.quality

@@ -224,8 +224,7 @@ def test_checkpoint_roundtrip_is_atomic(tmp_path):
 
 @pytest.mark.parametrize("flag,item", [
     (dict(data_parallel="on"), 8), (dict(halo=True), 8),
-    (dict(multihost=True), 8), (dict(gpu_profile=True), 9),
-    (dict(debug_checks=True), 9), (dict(plot_curve=True), 9)])
+    (dict(multihost=True), 8)])
 def test_unported_options_raise(flag, item):
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         driver.run_experiment(Config(dataset="Karate", **flag),

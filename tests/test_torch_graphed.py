@@ -381,8 +381,11 @@ def _batches_and_plan():
     dict(mode="learned", pipeline="hybrid", conditional=True, reg1=True,
          reg2=True, sparse_edge_mlp=True),
     dict(mode="learned", pipeline="two_pass", conditional=True),
-    dict(mode="random"), dict(mode="full")],
-    ids=["hybrid_rescore", "two_pass", "random", "full"])
+    dict(mode="random"), dict(mode="full"),
+    dict(mode="learned", pipeline="hybrid", conditional=True, reg1=True,
+         reg2=True, sparse_edge_mlp=True, dense_subgraph="on")],
+    ids=["hybrid_rescore", "two_pass", "random", "full",
+         "hybrid_rescore_dense"])
 def test_graphed_epoch_control_flow_equals_the_loop(kw):
     batches, plan, q, classes = _batches_and_plan()
     cfg = Config(**dict(BASE, **kw))

@@ -27,10 +27,13 @@ turns (own, caller, caller, own) three times in one process.
 
 ``experiment_noise``: chip_smoke.py's experiment cell, learned, 2 epochs,
 for the GCN backbone with the GCN scorer and the GAT backbone with the
-GraphSAGE scorer, each run eager, graphed, graphed, eager from the same
-seeds: the losses, F1 curves and conditional (edge-group) updates of
-every run, and the largest relative loss difference and F1 difference of
-each pair of runs (graphed vs eager, eager vs eager, graphed vs graphed).
+GraphSAGE scorer (the latter with ``--dense_subgraph`` off and on: on,
+the scorer's encoder and the random forward aggregate with (N, N)
+products instead of K1's and K2's atomics), each run eager, graphed,
+graphed, eager from the same seeds: the losses, F1 curves and conditional
+(edge-group) updates of every run, and the largest relative loss
+difference and F1 difference of each pair of runs (graphed vs eager,
+eager vs eager, graphed vs graphed).
 """
 import functools
 import importlib.util
@@ -185,11 +188,14 @@ def experiment_noise():
     cs.phase_serve(torch, cs.build_partition())     # kernels built, warm
     ds = cs.experiment_dataset()
     with tempfile.TemporaryDirectory() as results_dir:
-        for gnn, scorer in (("GCN", "GCN"), ("GAT", "GSAGE")):
+        for gnn, scorer, dense in (("GCN", "GCN", "off"),
+                                   ("GAT", "GSAGE", "off"),
+                                   ("GAT", "GSAGE", "on")):
+            model = f"{gnn}+{scorer} dense_subgraph={dense}"
             runs = []
             for route in ("eager", "graphed", "graphed", "eager"):
                 extra = ["--GNN", gnn, "--edge_mlp_type", scorer,
-                         "--save_csv", "false"]
+                         "--dense_subgraph", dense, "--save_csv", "false"]
                 if route == "eager":
                     extra += ["--scan_epoch", "off"]
                 cfg = config_from_args(cs.experiment_args(
@@ -199,13 +205,13 @@ def experiment_noise():
                 curves = res.train_curve + res.val_curve + res.test_curve
                 runs.append((route, res.losses, curves))
                 print(json.dumps(dict(
-                    reading="experiment_noise", model=f"{gnn}+{scorer}",
+                    reading="experiment_noise", model=model,
                     route=route, losses=res.losses, f1_curves=curves,
                     edge_updates=res.conditional_updates)), flush=True)
                 torch.cuda.empty_cache()
             for (ra, la, ca), (rb, lb, cb) in itertools.combinations(runs, 2):
                 print(json.dumps(dict(
-                    reading="experiment_noise_pair", model=f"{gnn}+{scorer}",
+                    reading="experiment_noise_pair", model=model,
                     pair=f"{ra} vs {rb}",
                     loss_rel=max(abs(a - b) / abs(b) for a, b in zip(la, lb)),
                     f1_abs=max(abs(a - b) for a, b in zip(ca, cb)))),
