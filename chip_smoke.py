@@ -135,12 +135,33 @@ Phases, each printing one JSON line:
               Scripts/run_memory.sh's flags and --debug_checks (every
               batch validated; each epoch's ``[gpu-profile]`` line with
               the four segments' ms and MiB; the ``[stats]`` peak not
-              lowered by the profiler).
+              lowered by the profiler); an ``eval_step`` line
+              (``make_eval_step`` of the learned run timed alone over
+              every partition, and profiled).
   7. quality  tests/test_quality.py's configuration (SyntheticSBMLow, f32,
               nhid 64, 60 epochs) through run_experiment for learned,
               random and full: learned must beat random by 0.2 and full by
               0.1 in final test F1; printed beside the JAX package's F1s
               in the same configuration (``QUALITY_JAX_REFERENCE``).
+  8. parallel  the multi-rank paths' process group on the card: one rank
+              under NCCL (one card, and NCCL takes one rank per device),
+              started by ``init_distributed``; its bucketed all-reduce must
+              return its input bit for bit; one data-parallel super-step
+              (``make_parallel_train_step``, hybrid_rescore at the train
+              phase's shapes) against the sequential step from equal
+              parameters and draws (loss within PARALLEL_LOSS_RTOL, every
+              gradient the optimizer gets within PARALLEL_GRAD_REL; a
+              second sequential copy gives the reordering floor), a
+              launch-counted super-step under
+              no_host_sync held to the sequential step's counts, both
+              timed in turns and profiled: a ``parallel_step`` line.
+              Then, on the experiment graph, a ``halo_step`` line (one
+              full-mode halo step on the whole graph against the
+              full-graph step, f32, equal parameters and draws; timed in
+              turns, profiled) and an ``experiment`` line each for learned
+              ``--data_parallel on`` (K1-K6), learned ``--halo`` (K1, K2,
+              K3, K5) and full ``--halo`` (K1, K2), 2 epochs each. Last,
+              so no earlier measurement runs beside the process group.
 
 Then a ``kernels`` line (one entry per TPU kernel of the JAX package: route,
 the units it runs on, source, the TPU kernel it replaces, launches on each
@@ -150,11 +171,13 @@ nonzero without the ok line; without a card it exits 1 before doing
 anything.
 """
 import contextlib
+import gc
 import importlib
 import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -1953,6 +1976,376 @@ def phase_dense(torch, g, kernels, sparse):
     return launches
 
 
+# the parallel phase: the multi-rank paths under NCCL. The card's machine
+# has one card and NCCL allows one rank per device, so the group has one
+# rank: its all-reduces are the identity, and the exchange moves nothing.
+PARALLEL_STEPS = 10           # timed steps of each side, in turns
+# one step from equal parameters and equal draws: the two sides differ
+# only in the order of f32 atomics (K1, K2, K5), so the loss and the
+# gradients the optimizer receives agree to within that reordering (a
+# second sequential copy gives its floor: on an H100 the two copies'
+# parameters after one step were 86.8% bit-equal, the rest moved by up to
+# 4 lr, Adam's first step being +-lr per group on a gradient's sign)
+PARALLEL_LOSS_RTOL = 1e-4
+PARALLEL_GRAD_REL = 1e-2      # relative L2 per gradient
+
+
+@contextlib.contextmanager
+def _captured_grads(opts, method):
+    """Inside: each optimizer's ``method`` records the gradients it
+    receives (one list per optimizer, replaced at every call). On exit the
+    class's method is back and the recorder's reference cycle gone."""
+    got = [[] for _ in opts]
+    for opt, rec in zip(opts, got):
+        def recording(grads, *args, _inner=getattr(opt, method), _rec=rec):
+            _rec[:] = [gr.detach().clone() for gr in grads]
+            return _inner(grads, *args)
+        setattr(opt, method, recording)
+    try:
+        yield got
+    finally:
+        for opt in opts:
+            delattr(opt, method)
+
+
+def _grad_gaps(names, got, want):
+    """{name: relative L2 of got - want}, over the gradients one step
+    handed its optimizer."""
+    out = {}
+    for n, a, b in zip(names, got, want):
+        den = float(b.float().norm())
+        out[n] = float((a.float() - b.float()).norm()) / max(den, 1e-30) \
+            if den > 0 else float(a.float().norm())
+    return out
+
+
+def _param_gap(a, b):
+    """max |a - b| over the parameters and the share that are bit-equal."""
+    gaps, equal, total = [], 0, 0
+    for (n, x), y in zip(a.named_parameters(), b.parameters()):
+        d = (x.detach() - y.detach()).abs()
+        gaps.append(float(d.max()))
+        equal += int((d == 0).sum())
+        total += d.numel()
+    return max(gaps), equal / total
+
+
+def _turns(torch, steps, n):
+    """Host ms per step of each of ``steps`` ({name: fn}), ``n`` steps
+    per block, two blocks each in turns (a b b a); returns {name: [ms,
+    ms]}."""
+    names = list(steps)
+    out = {k: [] for k in names}
+    for k in names + names[::-1]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(n):
+            steps[k](i)
+        torch.cuda.synchronize()
+        out[k].append((time.perf_counter() - t0) / n * 1e3)
+    return out
+
+
+def _fresh_model(torch, cfg, in_channels, classes):
+    from sgs_gnn_tpu_torch import DualOptimizer, get_model
+    model = get_model(cfg.GNN, in_channels, cfg.nhid, classes, cfg.drop_rate,
+                      cfg.edge_mlp_type, heads=cfg.gat_heads,
+                      dtype=cfg.dtype, device=DEVICE,
+                      generator=torch.Generator().manual_seed(0))
+    return model, DualOptimizer.create(model, cfg.GNN, cfg.lr,
+                                       cfg.weight_decay)
+
+
+def phase_parallel(torch, g):
+    """The process group and the data-parallel super-step on the bench
+    partition ``g`` (``train_graph``), bench.py's hybrid_rescore flags: a
+    one-rank NCCL group on the card (``init_distributed``); its bucketed
+    all-reduce must return its input bit for bit; one super-step
+    (``make_parallel_train_step``) against the sequential step
+    (``make_train_step``) from equal parameters and the same draws (a
+    second sequential copy gives the reordering floor): the loss within
+    PARALLEL_LOSS_RTOL, the gate equal, every gradient the optimizer
+    receives within PARALLEL_GRAD_REL (relative L2), the parameters after
+    the update reported beside the floor's; one launch-counted
+    super-step under no_host_sync, held to the sequential step's counts;
+    both sides timed in turns and profiled. A ``parallel_step`` line;
+    returns {"parallel_dp_step": launches}."""
+    from sgs_gnn_tpu_torch import Config, make_train_step
+    from sgs_gnn_tpu_torch.ops._build import LAUNCHES
+    from sgs_gnn_tpu_torch.parallel import (backend_for, init_distributed,
+                                            make_parallel_train_step,
+                                            rank_seed)
+    from sgs_gnn_tpu_torch.parallel.partitioned import all_reduce_mean
+    allocated_before = torch.cuda.memory_allocated()
+    mesh = init_distributed(device=DEVICE)
+    check((mesh.world, mesh.rank, mesh.backend, mesh.device.type)
+          == (1, 0, backend_for(DEVICE), torch.device(DEVICE).type),
+          f"process group {mesh}")
+    probe = [torch.randn(1000, 257, device=DEVICE),
+             torch.randn(3, device=DEVICE)]
+    check(all(torch.equal(a, b) for a, b in
+              zip(all_reduce_mean(probe, mesh), probe)),
+          "the all-reduce of one rank changed its input")
+
+    name, (overrides, _, expect) = "hybrid_rescore", \
+        PIPELINES["hybrid_rescore"]
+    cfg = Config(**bench_config(**overrides))
+    (m_seq, o_seq), (m_ref, o_ref), (m_dp, o_dp) = (
+        _fresh_model(torch, cfg, FEAT, CLASSES) for _ in range(3))
+    seq = make_train_step(cfg, m_seq, o_seq, Q, PARALLEL_STEPS * 4)
+    ref = make_train_step(cfg, m_ref, o_ref, Q, PARALLEL_STEPS * 4)
+    dp = make_parallel_train_step(cfg, m_dp, o_dp, Q, PARALLEL_STEPS * 4,
+                                  mesh)
+    gen = torch.Generator(device=DEVICE)
+
+    def seq_step(step, epoch, seed):
+        return step(g, epoch, gen.manual_seed(rank_seed(seed, 0)))
+
+    with _captured_grads((o_seq, o_ref, o_dp), "step_learned") as grads:
+        s1 = seq_step(seq, 0, 11)
+        s2 = seq_step(ref, 0, 11)
+        d1 = dp(g, 0, 11, gen)
+    losses = [float(s1.loss), float(s2.loss), float(d1.loss)]
+    gates = [float(s1.conditional_update), float(d1.conditional_update)]
+    gap, equal = _param_gap(m_dp, m_seq)
+    floor, floor_equal = _param_gap(m_ref, m_seq)
+    grad_gap = _grad_gaps(o_seq.names, grads[2], grads[0])
+    grad_floor = _grad_gaps(o_seq.names, grads[1], grads[0])
+    check(abs(losses[2] - losses[0]) <= PARALLEL_LOSS_RTOL * abs(losses[0])
+          and gates[0] == gates[1],
+          f"super-step of one rank: loss {losses}, gates {gates}")
+    check(max(grad_gap.values()) <= PARALLEL_GRAD_REL,
+          f"super-step of one rank: gradients {grad_gap} (floor "
+          f"{grad_floor})")
+
+    torch.cuda.synchronize()
+    LAUNCHES.clear()
+    with no_host_sync(torch):
+        dp(g, 1, 12, gen)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    check(launches == expect, f"super-step launches {launches}, the "
+                              f"sequential step's {expect}")
+    times = _turns(torch, {
+        "sequential": lambda i: seq_step(seq, 2 + i, 100 + i),
+        "super_step": lambda i: dp(g, 2 + i, 100 + i, gen)}, PARALLEL_STEPS)
+    prof = {"sequential": profile_breakdown(
+                torch, lambda: seq_step(seq, 30, 200)),
+            "super_step": profile_breakdown(torch, lambda: dp(g, 30, 200,
+                                                              gen))}
+    emit("parallel_step", pipeline=name, world=mesh.world,
+         backend=mesh.backend, config=bench_config(**overrides),
+         nodes=N_NODES, edges=N_EDGES, q=Q, losses=losses, gates=gates,
+         loss_rtol=PARALLEL_LOSS_RTOL,
+         grad_rel_l2_max=max(grad_gap.values()),
+         grad_rel_l2_floor_max=max(grad_floor.values()),
+         grad_rel_limit=PARALLEL_GRAD_REL, grad_rel_l2=grad_gap,
+         param_max_abs_gap=gap, param_bit_equal_share=equal,
+         sequential_floor_gap=floor,
+         sequential_floor_bit_equal_share=floor_equal,
+         lr=cfg.lr, launches_per_step=launches,
+         step_ms=times,
+         device_busy_ms={k: v["device_busy_ms"] for k, v in prof.items()},
+         idle_share={k: v["idle_share"] for k, v in prof.items()})
+    for k, v in prof.items():
+        emit("profile", call=f"parallel {k} step {name}", **v)
+    del m_seq, m_ref, m_dp, o_seq, o_ref, o_dp, seq, ref, dp, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("parallel_memory", allocated_before=allocated_before,
+         allocated_after=torch.cuda.memory_allocated())
+    return {"parallel_dp_step": launches}
+
+
+def _halo_parity(torch, ds):
+    """One full-mode halo step at world 1 (the whole experiment graph on
+    one rank: the halo route's gathers and segment sums, no exchange)
+    against the full-graph full-mode step on the same edge list, from
+    equal parameters and the same draws, in f32 (the two differ only in
+    the order of f32 atomics; bf16 would add the sequential route's one
+    rounding of the aggregate to bf16, which the halo route's f32
+    segment sum does not do, as in JAX): the loss within
+    PARALLEL_LOSS_RTOL, every gradient the optimizer receives within
+    PARALLEL_GRAD_REL; timed in turns. A ``halo_step`` line; returns
+    {"parallel_halo_step": launches}."""
+    from sgs_gnn_tpu_torch import Config, Graph, make_train_step
+    from sgs_gnn_tpu_torch.ops._build import LAUNCHES
+    from sgs_gnn_tpu_torch.parallel import (build_halo_batch,
+                                            init_distributed,
+                                            make_halo_train_step, rank_seed)
+    mesh = init_distributed(device=DEVICE)
+    cfg = Config(mode="full", nhid=NHID, dtype="float32")
+    t0 = time.perf_counter()
+    hb = build_halo_batch(ds.x, ds.edge_index, ds.y, ds.train_mask,
+                          ds.val_mask, ds.test_mask, ds.prob, 1,
+                          ds.num_classes, rank=0, device=DEVICE)
+    build_s = time.perf_counter() - t0
+    gfull = Graph.build(ds.x, ds.edge_index, ds.y, ds.train_mask,
+                        ds.val_mask, ds.test_mask, prob=ds.prob,
+                        num_classes=ds.num_classes, device=DEVICE)
+    check(torch.equal(hb.senders_ext, gfull.senders)
+          and torch.equal(hb.receivers_loc, gfull.receivers)
+          and hb.round_sizes == () and hb.ext_rows == 0,
+          "halo batch of one rank is not the graph's edge list")
+    (m_seq, o_seq), (m_halo, o_halo) = (
+        _fresh_model(torch, cfg, ds.x.shape[1], ds.num_classes)
+        for _ in range(2))
+    seq = make_train_step(cfg, m_seq, o_seq, gfull.num_edges, 10)
+    halo = make_halo_train_step(cfg, m_halo, o_halo, 10, mesh)
+    gen = torch.Generator(device=DEVICE)
+    with _captured_grads((o_seq, o_halo), "step_all") as grads:
+        s1 = seq(gfull, 0, gen.manual_seed(rank_seed(21, 0)))
+        h1 = halo(hb, 0, 21, gen)
+    losses = [float(s1.loss), float(h1.loss)]
+    gap, equal = _param_gap(m_halo, m_seq)
+    grad_gap = _grad_gaps(o_seq.names, grads[1], grads[0])
+    check(abs(losses[1] - losses[0]) <= PARALLEL_LOSS_RTOL * abs(losses[0]),
+          f"halo step of one rank: losses {losses}")
+    check(max(grad_gap.values()) <= PARALLEL_GRAD_REL,
+          f"halo step of one rank: gradients {grad_gap}")
+    torch.cuda.synchronize()
+    LAUNCHES.clear()
+    with no_host_sync(torch):
+        halo(hb, 1, 22, gen)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    check(set(launches) == set(ROWS), f"halo full step launches {launches}")
+    times = _turns(torch, {
+        "full_graph": lambda i: seq(gfull, 2 + i, gen.manual_seed(
+            rank_seed(300 + i, 0))),
+        "halo": lambda i: halo(hb, 2 + i, 300 + i, gen)}, 3)
+    prof = {"full_graph": profile_breakdown(torch, lambda: seq(
+                gfull, 9, gen.manual_seed(rank_seed(400, 0)))),
+            "halo": profile_breakdown(torch, lambda: halo(hb, 9, 400, gen))}
+    emit("halo_step", mode="full", world=mesh.world, dtype=cfg.dtype,
+         nodes=ds.num_nodes, edges=ds.num_edges, nhid=NHID,
+         halo_batch_build_s=build_s, losses=losses,
+         loss_rtol=PARALLEL_LOSS_RTOL,
+         grad_rel_l2_max=max(grad_gap.values()),
+         grad_rel_limit=PARALLEL_GRAD_REL, param_max_abs_gap=gap,
+         param_bit_equal_share=equal, lr=cfg.lr,
+         launches_per_step=launches, step_ms=times,
+         device_busy_ms={k: v["device_busy_ms"] for k, v in prof.items()},
+         idle_share={k: v["idle_share"] for k, v in prof.items()})
+    for k, v in prof.items():
+        emit("profile", call=f"halo {k} step (full mode, f32)", **v)
+    del hb, gfull, m_seq, m_halo, o_seq, o_halo, seq, halo, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"parallel_halo_step": launches}
+
+
+# the driver's multi-rank paths on the experiment cell, 2 epochs each
+PARALLEL_RUNS = (("learned", "data_parallel", ("--data_parallel", "on")),
+                 ("learned", "halo", ("--halo", "true")),
+                 ("full", "halo", ("--halo", "true")))
+HALO_LEARNED = ("scatter_add", "segment_sum_scalar", "score_head_sampled",
+                "score_head_bwd")
+
+
+def phase_parallel_experiment(torch, ds, results_dir):
+    """The halo step's parity (``_halo_parity``), then each of
+    PARALLEL_RUNS through the CLI's parser and run_experiment with every
+    launch counter at 0 just before it: an ``experiment`` line each
+    (route, world, plan, epoch and eval times, losses, F1s, launches per
+    epoch). Learned data_parallel must launch K1-K6 (the tile index
+    engages on the card); learned halo K1, K2, K3 and K5 (the head runs
+    on the extended table; no tile index); full halo K1 and K2 only.
+    Returns {path: launches}."""
+    from sgs_gnn_tpu_torch.run.cli import config_from_args
+    paths = _halo_parity(torch, ds)
+    for mode, route, flags in PARALLEL_RUNS:
+        label = f"{mode} {route}"
+        cfg = config_from_args(experiment_args(
+            mode, results_dir, extra=[*flags, "--save_csv", "false"]))
+        res, lines, per_epoch, launches, seconds = run_experiment_counted(
+            torch, cfg, ds, label)
+        _check_result(label, res)
+        check(any(ln.startswith("[fastpath] epoch=per-batch loop ("
+                                + route) for ln in lines),
+              f"{label}: the route's [fastpath] line is missing")
+        stats = next(ln for ln in lines if ln.startswith("[stats]"))
+        check(f"{'parallel' if route == 'data_parallel' else 'halo'}=1"
+              in stats, f"{label}: {stats}")
+        if route == "data_parallel":
+            _check_launches(mode, route, launches)
+            check(res.total_updates == EXPERIMENT_EPOCHS
+                  * res.plan["parts"], f"{label}: {res.total_updates} "
+                                       "updates")
+        elif mode == "learned":
+            check(set(launches) == set(HALO_LEARNED),
+                  f"{label}: launched {launches}")
+        else:
+            check(set(launches) == set(ROWS), f"{label}: launched "
+                                              f"{launches}")
+        emit("experiment", mode=mode, route=route, model="GCN+GCN",
+             nodes=ds.num_nodes, edges=ds.num_edges, plan=res.plan,
+             epoch_s=res.epoch_times,
+             eval_ms=[t * 1e3 for t in res.eval_times],
+             edges_per_s_steady=res.edges_per_s_steady, run_s=seconds,
+             losses=res.losses, total_updates=res.total_updates,
+             final_f1=dict(train=res.final_train_f1, val=res.final_val_f1,
+                           test=res.final_test_f1),
+             peak_device_mem_mb=res.peak_device_mem_mb,
+             launches_per_epoch=per_epoch, launches=launches,
+             fastpath=[ln for ln in lines if ln.startswith("[fastpath]")],
+             stats=stats)
+        paths[f"experiment_{mode}_{route}"] = launches
+        torch.cuda.empty_cache()
+    return paths
+
+
+EVAL_REPEATS = 5
+
+
+def _eval_step_line(torch, cfg, ds):
+    """``make_eval_step`` timed alone on the experiment cell's partitions
+    (the learned configuration, eager): per batch and per eval of every
+    batch, host clock to a sync, EVAL_REPEATS times, and one profiled
+    eval. An ``eval_step`` line."""
+    from sgs_gnn_tpu_torch import make_eval_step
+    from sgs_gnn_tpu_torch.eval import accumulate_eval_device, aggregate_eval
+    from sgs_gnn_tpu_torch.run import driver
+    batches, q, _ = driver.prepare_batches(cfg, ds, DEVICE)
+    model, _ = _fresh_model(torch, cfg, ds.x.shape[1], ds.num_classes)
+    valid = [int(b.edge_mask.sum()) for b in batches]
+    evals = {False: make_eval_step(cfg, model, q),
+             True: make_eval_step(cfg, model, q, force_small=True)}
+    gen = torch.Generator(device=DEVICE)
+
+    def eval_all():
+        acc = None
+        for b, v in zip(batches, valid):
+            acc = accumulate_eval_device(acc, evals[v <= q](
+                b, gen.manual_seed(5)))
+        return acc
+
+    aggregate_eval([eval_all()])                 # warm-up
+    per_eval = []
+    for _ in range(EVAL_REPEATS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        agg = aggregate_eval([eval_all()])
+        per_eval.append((time.perf_counter() - t0) * 1e3)
+    per_batch = []
+    for b, v in zip(batches, valid):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        evals[v <= q](b, gen.manual_seed(5))
+        torch.cuda.synchronize()
+        per_batch.append((time.perf_counter() - t0) * 1e3)
+    prof = profile_breakdown(torch, eval_all)
+    emit("eval_step", mode=cfg.mode, batches=len(batches), q=q,
+         draws=cfg.num_samples_eval, edges=[b.num_edges for b in batches],
+         eval_ms=per_eval, batch_ms=per_batch,
+         device_busy_ms=prof["device_busy_ms"],
+         idle_share=prof["idle_share"], f1=agg)
+    emit("profile", call="make_eval_step over every partition (learned)",
+         **prof)
+    del batches, model
+    torch.cuda.empty_cache()
+
+
 # the experiment phase: a Reddit-shaped graph (the port's
 # community_sbm_graph at Reddit's widths: 602 features, 41 classes,
 # deg=330) small enough for ~5 native partitions of ~1M kept edges at
@@ -2335,6 +2728,7 @@ def phase_experiment(torch):
         _compare_routes("learned", runs["graphed"], runs["eager"], model)
         paths["experiment_learned_memory_flags"] = _memory_flags_run(
             torch, ds, results_dir, results["learned"])
+        _eval_step_line(torch, cfgs["learned"], ds)
     torch.cuda.empty_cache()
     return paths
 
@@ -2494,6 +2888,15 @@ def main():
     torch.cuda.empty_cache()
     paths.update(phase_experiment(torch))
     phase_quality(torch)
+    # last, so that no earlier measurement runs beside the process group
+    # or what its phases leave on the card
+    g = train_graph(torch, arrays)
+    paths.update(phase_parallel(torch, g))
+    del g
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as results_dir:
+        paths.update(phase_parallel_experiment(torch, experiment_dataset(),
+                                               results_dir))
 
     line = []
     for name, (source, replaces) in KERNELS.items():
@@ -2513,6 +2916,8 @@ def main():
             device_bound_share=k["bound_ms"] / k["device_ms"],
             library_ms=k["library_ms"], matched=True, case=k["case"]))
     print(json.dumps({"kernels": line}), flush=True)
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -109,13 +109,15 @@ class Config:
     checkpoint_every: int = 0     # save full train state every N epochs
     resume: bool = False          # resume from the latest checkpoint
     debug_checks: bool = False    # validate graph batches at prep time
-    data_parallel: str = 'off'    # 'on' = shard partitions over the mesh
-                                  # (synchronous grad-psum superset mode)
+    data_parallel: str = 'off'    # 'on' = one partition per rank per
+                                  # super-step, gradients averaged by an
+                                  # all-reduce (parallel/partitioned.py)
     halo: bool = False            # halo-exchange mode: FULL-GRAPH semantics
                                   # with partitioned storage (parallel/
                                   # halo_train.py); all four backbones
-    # multi-host execution (jax.distributed over ICI x DCN); one process per
-    # host, each loading its own partition group (parallel/distributed.py)
+    # the process group from --coordinator_address (torch.distributed, one
+    # process per rank, each loading its own partitions;
+    # parallel/distributed.py)
     multihost: bool = False
     coordinator_address: str = ''  # host:port of process 0
     num_processes: int = 1
@@ -146,8 +148,8 @@ class Config:
     # count (one executable); k>1 groups partitions into up to k padded
     # shapes, each compiled separately — recovers the padded-slot waste of
     # skewed partitions (valid/padded 0.84 -> ~0.97 on the Reddit-scale
-    # workload). Forced to 1 under data_parallel (shard_map stacks need one
-    # uniform shape).
+    # workload). Forced to 1 under data_parallel (every rank's partition of
+    # a super-step has one shape, as JAX's shard_map stack needs).
     shape_classes: int = 3
     num_partitions: int = 0       # 0 = auto from metis_threshold (main.py:41-54)
     mesh_shape: Optional[tuple] = None  # device mesh for partition parallelism

@@ -66,6 +66,14 @@ class Graph:
     def num_edges(self) -> int:
         return self.senders.shape[0]
 
+    def to(self, device) -> "Graph":
+        """The same graph with every tensor on ``device``."""
+        dev = resolve_device(device)
+        return dataclasses.replace(self, **{
+            f.name: getattr(self, f.name).to(dev)
+            for f in dataclasses.fields(self)
+            if isinstance(getattr(self, f.name), torch.Tensor)})
+
     @staticmethod
     def build(x, edge_index, y, train_mask=None, val_mask=None,
               test_mask=None, prob=None, num_classes: Optional[int] = None,

@@ -36,6 +36,10 @@ def degree_prior(senders, receivers, num_nodes: int) -> np.ndarray:
     prob = col_count[senders] + row_count[receivers]
     prob = 1.0 / (prob + 1e-10)
     e = len(senders)
+    if e == 0:
+        # an empty partition (kept under data_parallel; the JAX function
+        # raises ZeroDivisionError here)
+        return np.zeros(0, np.float32)
     return _softmax(prob * e ** -0.5).astype(np.float32)
 
 

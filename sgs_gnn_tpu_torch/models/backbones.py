@@ -24,7 +24,8 @@ class _Backbone(nn.Module):
     between them, and the scorer's entry points. A subclass registers its
     two layers under their JAX names and returns them from ``layers``.
     The edge weights go to both layers; GIN and GAT ignore them, as PyG's
-    do."""
+    do. The halo hooks (``exchange``, ``edge_mask``; ``models/layers.py``)
+    pass through to both layers and to the scorer."""
 
     def __init__(self, in_channels: int, hidden_dim: int,
                  dropout_prob: float = 0.3, edge_mlp_type: str = "MLP",
@@ -39,12 +40,15 @@ class _Backbone(nn.Module):
         raise NotImplementedError
 
     def forward(self, x, senders, receivers, edge_weight=None,
-                deterministic: bool = True, generator=None):
+                deterministic: bool = True, generator=None, exchange=None,
+                edge_mask=None):
         layer1, layer2 = self.layers()
-        h = torch.relu(layer1(x, senders, receivers, edge_weight))
+        h = torch.relu(layer1(x, senders, receivers, edge_weight, exchange,
+                              edge_mask))
         h = dropout(h, self.dropout_prob, generator,
                     training=not deterministic)
-        return layer2(h, senders, receivers, edge_weight)
+        return layer2(h, senders, receivers, edge_weight, exchange,
+                      edge_mask)
 
     def score_edges(self, x, prop_senders, prop_receivers, score_senders,
                     score_receivers, deterministic: bool = True,
@@ -59,21 +63,24 @@ class _Backbone(nn.Module):
                                   generator)
 
     def encode_scorer(self, x, prop_senders, prop_receivers,
-                      deterministic: bool = True, generator=None):
+                      deterministic: bool = True, generator=None,
+                      exchange=None, edge_mask=None):
         """Scorer encoder only -> node embeddings (hybrid_rescore path)."""
         return self.edge_prob_mlp.encode(x, prop_senders, prop_receivers,
-                                         deterministic, generator)
+                                         deterministic, generator, exchange,
+                                         edge_mask)
 
     def score_from_embeddings(self, h, senders, receivers,
                               deterministic: bool = True,
                               use_remat: bool = False,
                               receiver_band: int = 0,
-                              sorted_side: str = "", generator=None):
+                              sorted_side: str = "", generator=None,
+                              exchange=None):
         """Score head only, over precomputed scorer embeddings."""
         return self.edge_prob_mlp.score_from(h, senders, receivers,
                                              deterministic, use_remat,
                                              receiver_band, sorted_side,
-                                             generator)
+                                             generator, exchange)
 
     def score_tiles_from_embeddings(self, h, tile_ls, tile_lr, tile_su,
                                     tile_rv, t: int, bk: int,

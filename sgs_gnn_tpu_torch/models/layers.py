@@ -13,8 +13,20 @@ table), sums ``ops.scatter`` (K1 for rows, K2 for scalars) or
 A densified subgraph (``ops.dense_graph.DenseEdges``) may be passed in
 place of ``senders``, with ``receivers`` None: each layer then aggregates
 with (N, N) products, as the JAX layers' ``DenseEdges`` branches do, with
-their cast points. The JAX layers' halo hooks (``exchange``,
-``edge_mask``) are not ported.
+their cast points.
+
+Every layer also takes the JAX layers' two SPMD hooks, so the halo route
+(``parallel/halo_train.py``) runs these same modules on one rank's shard:
+
+  * ``exchange``: a callable (N_loc, F) -> (N_ext, F) (or (N_loc,) ->
+    (N_ext,)) that keeps the local rows first and appends the boundary
+    rows received from the other ranks (``parallel.halo_train.Exchange``).
+    With it, sender ids address the extended table and the aggregation is
+    a local gather + segment sum (K1, K2) in f32.
+  * ``edge_mask``: an (E,) bool; False slots (halo padding) take no part
+    in aggregation, normalisation or attention.
+
+With both None the layers compute as before.
 
 Initialisers follow flax: ``glorot_uniform`` where the JAX layer names it,
 otherwise ``nn.Dense``'s ``lecun_normal`` with a zero bias.
@@ -99,9 +111,14 @@ class GCNConv(nn.Module):
         self.lin = glorot_dense(in_features, features, generator)
         self.bias = nn.Parameter(torch.zeros(features, dtype=PARAM_DTYPE))
 
-    def forward(self, x, senders, receivers, edge_weight=None):
+    def forward(self, x, senders, receivers, edge_weight=None,
+                exchange=None, edge_mask=None):
         n = x.shape[0]
         dense = isinstance(senders, DenseEdges)
+        if edge_mask is not None:
+            mf = edge_mask.float()
+            edge_weight = mf if edge_weight is None \
+                else edge_weight.float() * mf
         if dense:
             # weighted in-degree: a row sum
             deg = senders.adj.sum(dim=1) + 1.0
@@ -113,7 +130,14 @@ class GCNConv(nn.Module):
         dis = torch.where(deg > 0, torch.rsqrt(deg.clamp(min=1e-32)), 0.0)
         xw = linear(x, self.lin, self.dtype)
         xs = xw * dis[:, None].to(xw.dtype)
-        if dense:
+        if exchange is not None:
+            # halo: the scaled projections of boundary rows arrive by the
+            # exchange; senders address the extended table
+            msgs = gather_rows(exchange(xs), senders).float()
+            if edge_weight is not None:
+                msgs = msgs * edge_weight.float()[:, None]
+            agg = scatter_add(msgs, receivers, n)
+        elif dense:
             agg = senders.adj.to(xw.dtype) @ xs
         else:
             agg = spmm(senders, receivers, edge_weight, xs, n,
@@ -136,13 +160,22 @@ class SAGEConv(nn.Module):
         self.lin_l = dense(in_features, features, True, generator)
         self.lin_r = dense(in_features, features, False, generator)
 
-    def forward(self, x, senders, receivers, edge_weight=None):
-        if isinstance(senders, DenseEdges):
+    def forward(self, x, senders, receivers, edge_weight=None,
+                exchange=None, edge_mask=None):
+        n = x.shape[0]
+        if exchange is not None or edge_mask is not None:
+            x_src = exchange(x) if exchange is not None else x
+            mf = (torch.ones(senders.shape[0], dtype=torch.float32,
+                             device=x.device)
+                  if edge_mask is None else edge_mask.float())
+            msgs = gather_rows(x_src, senders).float() * mf[:, None]
+            cnt = segment_sum_scalar(mf, receivers, n).clamp(min=1.0)
+            agg = scatter_add(msgs, receivers, n) / cnt[:, None]
+        elif isinstance(senders, DenseEdges):
             cnt = senders.adj.sum(dim=1, keepdim=True).clamp(min=1.0)
             agg = (senders.adj.to(x.dtype) @ x).float() / cnt
         else:
-            agg = segment_mean(gather_rows(x, senders), receivers,
-                               x.shape[0])
+            agg = segment_mean(gather_rows(x, senders), receivers, n)
         out = linear(agg, self.lin_l, self.dtype) \
             + linear(x, self.lin_r, self.dtype)
         return out.float()
@@ -177,7 +210,8 @@ class GATConv(nn.Module):
         self.bias = nn.Parameter(torch.zeros(
             heads * features if concat else features, dtype=PARAM_DTYPE))
 
-    def forward(self, x, senders, receivers, edge_weight=None):
+    def forward(self, x, senders, receivers, edge_weight=None,
+                exchange=None, edge_mask=None):
         n, h, f = x.shape[0], self.heads, self.features
         xw = linear(x, self.lin, self.dtype).float()            # (N, H·F)
         xw3 = xw.reshape(n, h, f)
@@ -187,7 +221,7 @@ class GATConv(nn.Module):
             out = self._dense(senders.adj, alpha_src, alpha_dst, xw3)
         else:
             out = self._sparse(senders, receivers, alpha_src, alpha_dst,
-                               xw)
+                               xw, exchange, edge_mask)
         if not self.concat:
             out = out.reshape(n, h, f).mean(dim=1)
         return out + self.bias
@@ -209,18 +243,31 @@ class GATConv(nn.Module):
         out = torch.bmm(w.to(xw3.dtype), xw3.transpose(0, 1))  # (H, N, F)
         return out.transpose(0, 1).reshape(n, h * f)
 
-    def _sparse(self, senders, receivers, alpha_src, alpha_dst, xw):
+    def _sparse(self, senders, receivers, alpha_src, alpha_dst, xw,
+                exchange=None, edge_mask=None):
+        """The segment form. Under halo the senders' attention terms and
+        projected rows arrive by the exchange and the softmax stays local
+        (a node's inbound edges all live on its rank); the self-loops are
+        local rows, valid in both index spaces. Masked slots get -inf
+        logits."""
         n, h = alpha_src.shape
         f = xw.shape[1] // h
         if h == 1:
             # one head: (N,) tables, so the sums and VJPs are K2's
             alpha_src, alpha_dst = alpha_src[:, 0], alpha_dst[:, 0]
+        if exchange is not None:
+            alpha_src, xw = exchange(alpha_src), exchange(xw)
         loop = torch.arange(n, dtype=senders.dtype, device=senders.device)
         s = torch.cat([senders, loop])
         r = torch.cat([receivers, loop])
         logits = nn.functional.leaky_relu(
             gather_rows(alpha_src, s) + gather_rows(alpha_dst, r),
             self.negative_slope)
+        if edge_mask is not None:
+            m = torch.cat([edge_mask, torch.ones(n, dtype=torch.bool,
+                                                 device=edge_mask.device)])
+            logits = torch.where(m.reshape((-1,) + (1,) * (logits.dim() - 1)),
+                                 logits, -torch.inf)
         alpha = segment_softmax(logits, r, n).reshape(-1, h, 1)  # (E', H, 1)
         msgs = gather_rows(xw, s).reshape(-1, h, f) * alpha
         return scatter_add(msgs.reshape(-1, h * f), r, n)
@@ -239,8 +286,15 @@ class GINConv(nn.Module):
         self.mlp_lin1 = dense(in_features, hidden, True, generator)
         self.mlp_lin2 = dense(hidden, features, True, generator)
 
-    def forward(self, x, senders, receivers, edge_weight=None):
-        if isinstance(senders, DenseEdges):
+    def forward(self, x, senders, receivers, edge_weight=None,
+                exchange=None, edge_mask=None):
+        if exchange is not None or edge_mask is not None:
+            x_src = exchange(x) if exchange is not None else x
+            msgs = gather_rows(x_src, senders)
+            if edge_mask is not None:
+                msgs = msgs * edge_mask.to(msgs.dtype)[:, None]
+            agg = scatter_add(msgs, receivers, x.shape[0])
+        elif isinstance(senders, DenseEdges):
             agg = (senders.adj.to(x.dtype) @ x).float()
         else:
             agg = spmm(senders, receivers, None, x, x.shape[0])
@@ -268,9 +322,15 @@ class ChebConv(nn.Module):
                     glorot_dense(in_features, features, generator))
         self.bias = nn.Parameter(torch.zeros(features, dtype=PARAM_DTYPE))
 
-    def forward(self, x, senders, receivers, edge_weight=None):
+    def forward(self, x, senders, receivers, edge_weight=None,
+                exchange=None, edge_mask=None):
         out = linear(x, self.lins_0, self.dtype).float()
         if self.K > 1:
+            if exchange is not None:
+                # K = 1 (the backbone's) is graph-free; the recurrence
+                # under halo is not supported, as in JAX
+                raise NotImplementedError(
+                    "halo exchange supports ChebConv K=1 only")
             n = x.shape[0]
             if isinstance(senders, DenseEdges):
                 # D^-1/2 A D^-1/2 densely: rows and columns scaled

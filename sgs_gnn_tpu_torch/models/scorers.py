@@ -22,6 +22,13 @@ edge (u, v) -> sigmoid(fc2(relu(fc1([h_u * h_v || h_u - h_v])))):
     sigmoid in f32. ``use_remat`` wraps it in ``torch.utils.checkpoint``,
     the JAX ``jax.checkpoint`` (``--hybrid_checkpoint``).
 
+Under halo (``exchange`` given, ``parallel/halo_train.py``) the head runs
+the first route on the extended table ``exchange(h)``: the local rows come
+first there, so the local receivers and the extended-space senders both
+index it, and the kernels are the sequential route's (the JAX scorer runs
+its unfused head on ``exchange(h)[senders]`` and ``h[receivers]``).
+The encoders pass ``exchange`` and ``edge_mask`` to their layers.
+
 ``score_tiles`` goes through ``ops.score_head_tiles`` (K6, detached). On
 the CPU the ops run their plain versions. fc1 is stored as one
 ``nn.Linear(2F, K)`` (the JAX tree's concat kernel, transposed) and split
@@ -121,17 +128,22 @@ class _EdgeScorer(nn.Module):
         self.head = _ScoreHead(hidden_dim, dropout_prob, generator)
 
     def encode(self, x, prop_senders, prop_receivers,
-               deterministic: bool = True, generator=None):
+               deterministic: bool = True, generator=None, exchange=None,
+               edge_mask=None):
         raise NotImplementedError
 
     def score_from(self, h, senders, receivers, deterministic: bool = True,
                    use_remat: bool = False, receiver_band: int = 0,
-                   sorted_side: str = "", generator=None):
+                   sorted_side: str = "", generator=None, exchange=None):
         """(E,) f32 probabilities of the (senders, receivers) edges; the
         route is chosen by ``receiver_band`` (module docstring).
         ``use_remat`` applies to the unfused route only: the fused head's
-        backward recomputes its forward anyway, as in JAX."""
+        backward recomputes its forward anyway, as in JAX. With
+        ``exchange`` the fused head runs on ``exchange(h)``."""
         h = h.to(self.dtype)
+        if exchange is not None:
+            return self.head(exchange(h), senders, receivers, deterministic,
+                             "", generator)
         if receiver_band == 0:
             return self.head(h, senders, receivers, deterministic,
                              sorted_side, generator)
@@ -181,7 +193,9 @@ class EdgeProbMLP(_EdgeScorer):
         self.fcdim = dense(in_channels, hidden_dim, True, generator)
 
     def encode(self, x, prop_senders, prop_receivers,
-               deterministic: bool = True, generator=None):
+               deterministic: bool = True, generator=None, exchange=None,
+               edge_mask=None):
+        # no propagation: the halo hooks are inert
         h = torch.relu(linear(x, self.fcdim, self.dtype))
         h = dropout(h, self.dropout_prob, generator,
                     training=not deterministic)
@@ -200,8 +214,10 @@ class EdgeProbSAGE(_EdgeScorer):
         self.gcn1 = SAGEConv(in_channels, hidden_dim, dtype, generator)
 
     def encode(self, x, prop_senders, prop_receivers,
-               deterministic: bool = True, generator=None):
-        h = self.gcn1(x, prop_senders, prop_receivers)
+               deterministic: bool = True, generator=None, exchange=None,
+               edge_mask=None):
+        h = self.gcn1(x, prop_senders, prop_receivers, None, exchange,
+                      edge_mask)
         h = dropout(torch.relu(h), self.dropout_prob, generator,
                     training=not deterministic)
         return h.to(self.dtype)
@@ -220,11 +236,14 @@ class EdgeProbGCN(_EdgeScorer):
         self.gcn2 = GCNConv(hidden_dim, hidden_dim, dtype, generator)
 
     def encode(self, x, prop_senders, prop_receivers,
-               deterministic: bool = True, generator=None):
-        h = self.gcn1(x, prop_senders, prop_receivers)
+               deterministic: bool = True, generator=None, exchange=None,
+               edge_mask=None):
+        h = self.gcn1(x, prop_senders, prop_receivers, None, exchange,
+                      edge_mask)
         h = dropout(torch.relu(h), self.dropout_prob, generator,
                     training=not deterministic)
-        h = torch.relu(self.gcn2(h, prop_senders, prop_receivers))
+        h = torch.relu(self.gcn2(h, prop_senders, prop_receivers, None,
+                                 exchange, edge_mask))
         return h.to(self.dtype)
 
 

@@ -8,7 +8,15 @@ device or platform raises. There is no compilation cache.
     python -m sgs_gnn_tpu_torch.run.cli --dataset Karate --device cpu ...
 
 is the counterpart of ``python -m sgs_gnn_tpu.run.cli`` (and of the
-reference's ``python main.py``).
+reference's ``python main.py``). The multi-rank paths run one process per
+rank, for instance two CPU ranks talking gloo:
+
+    torchrun --nproc_per_node 2 -m sgs_gnn_tpu_torch.run.cli --device cpu \
+        --data_parallel on --dataset SyntheticSBM --metis_threshold 2000
+
+(on cards each rank binds ``cuda:LOCAL_RANK`` and talks NCCL); without
+``torchrun`` or ``--multihost --coordinator_address host:port
+--num_processes W --process_id r`` they run as a one-rank group.
 """
 from __future__ import annotations
 
@@ -123,7 +131,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument('--halo', type=str2bool, nargs='?', const=True,
                    default=d.halo,
                    help='halo-exchange mode: full-graph semantics with '
-                        'partitioned storage over the mesh')
+                        'partitioned storage over the ranks')
     p.add_argument('--dense_subgraph', type=str, default=d.dense_subgraph,
                    choices=['auto', 'on', 'off'],
                    help='densify per-step subgraphs into (N,N) adjacencies '
@@ -146,7 +154,9 @@ def build_parser() -> argparse.ArgumentParser:
                         'head runs banded one-hot ops (A/B: off)')
     p.add_argument('--multihost', type=str2bool, nargs='?', const=True,
                    default=d.multihost,
-                   help='initialize jax.distributed and run over all hosts')
+                   help='start the process group from --coordinator_'
+                        'address/--num_processes/--process_id (or '
+                        "torchrun's environment) and run over every rank")
     p.add_argument('--coordinator_address', type=str,
                    default=d.coordinator_address)
     p.add_argument('--num_processes', type=int, default=d.num_processes)
@@ -182,8 +192,11 @@ def main(argv=None):
     device = device_from_args(args)
     cfg = config_from_args(argv)
     print(cfg.dataset)
+    import torch.distributed as dist
     from .driver import run_experiment
     run_experiment(cfg, device=device)
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

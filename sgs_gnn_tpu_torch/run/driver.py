@@ -1,5 +1,6 @@
-"""Experiment driver, sequential path (port of ``run/driver.py``: the
-equivalent of the reference's main.py run loop).
+"""Experiment driver (port of ``run/driver.py``: the equivalent of the
+reference's main.py run loop), its sequential path and its two multi-rank
+paths.
 
 As in the JAX package (reference main.py:16-321):
   * partition decision: E >= metis_threshold -> num_parts =
@@ -45,9 +46,19 @@ the reference's four segments (``utils/profiler.py``; a ``[gpu-profile]``
 line per epoch); ``plot_curve`` saves each run's F1 curves to
 ``results_dir`` (``viz/curves.py``).
 
-What the JAX driver has and this port does not yet carry raises
-``NotImplementedError`` naming its ROADMAP.md item: ``data_parallel``,
-``halo``, ``multihost`` (§1 item 8). Every backbone x scorer pair runs.
+The multi-rank paths run one process per rank under ``torch.distributed``
+(``parallel/``): ``data_parallel='on'`` (``run_experiment_parallel``: the
+cluster partitions in super-steps of W, one per rank, one synchronised
+update per super-step) and ``halo`` (``run_experiment_halo``: full-graph
+semantics, each rank owning a node shard and its inbound edges, one
+update per epoch). The group comes from ``--multihost``'s
+``--coordinator_address``/``--num_processes``/``--process_id``, else from
+``torchrun``'s environment, else it is a one-rank group on the caller's
+device (``parallel/distributed.py``); ``--multihost`` alone runs the
+sequential path on every rank. Only rank 0 logs and writes the CSV,
+checkpoints and plots; every rank restores a checkpoint on resume. Both
+loops are eager: the JAX parallel driver has no scan, so ``scan_epoch``
+does not apply to them. Every flag of the JAX driver runs.
 """
 from __future__ import annotations
 
@@ -55,7 +66,7 @@ import csv
 import os
 import time
 from dataclasses import dataclass, field
-from typing import List, Optional
+from typing import Callable, List, Optional
 
 import numpy as np
 import torch
@@ -73,6 +84,7 @@ from ..eval.evaluate import ScanEvalStep
 from ..models import get_model
 from ..ops.dense_graph import (AUTO_DEVICE_TYPES, dense_supported,
                                use_dense_subgraph)
+from ..parallel.distributed import init_distributed, is_primary
 from ..train import DualOptimizer, make_scan_epoch_step, make_train_step
 from ..train.pipelines import ScanEpochStep
 from .checkpoint import TrainState, load_checkpoint, save_checkpoint
@@ -110,22 +122,6 @@ class RunResult:
     graphs: dict = field(default_factory=dict)
 
 
-def _roadmap_item(what: str, item: int):
-    return NotImplementedError(
-        f"{what}: not ported to the PyTorch package yet (ROADMAP.md §1 "
-        f"item {item})")
-
-
-def check_ported(cfg: Config) -> None:
-    """Raise for what the JAX driver runs and this port does not."""
-    if cfg.data_parallel == "on":
-        raise _roadmap_item("data_parallel='on'", 8)
-    if cfg.halo:
-        raise _roadmap_item("halo=True", 8)
-    if cfg.multihost:
-        raise _roadmap_item("multihost=True", 8)
-
-
 def want_tile_index(cfg: Config, device) -> bool:
     """Build the tile-pair edge index at preparation? It serves only the
     learned hybrid_rescore sampling pass (K6); 'auto' builds it where K6
@@ -138,12 +134,17 @@ def want_tile_index(cfg: Config, device) -> bool:
     return cfg.tile_index == "on" or torch.device(device).type == "cuda"
 
 
-def prepare_batches(cfg: Config, ds: HostDataset, device="cuda"):
-    """Partition decision + batch materialisation on ``device``
-    (main.py:41-67). Returns (batches, q, partitioner), the partitioner
-    that ran ('native' or 'rcm'), or None for one unpartitioned batch."""
+def prepare_batches(cfg: Config, ds: HostDataset, device="cuda",
+                    build_device=None):
+    """Partition decision + batch materialisation (main.py:41-67) for
+    ``device``, built on ``build_device`` (default ``device``). Returns
+    (batches, q, partitioner), the partitioner that ran ('native' or
+    'rcm'), or None for one unpartitioned batch. Under ``data_parallel``
+    unused partitions are kept (the super-steps need W of them each; an
+    empty one trains nothing) and every batch pads to one shape."""
     e = ds.num_edges
     tiles = want_tile_index(cfg, device)
+    device = build_device or device
     if e < cfg.metis_threshold:
         q = int(e * cfg.sample_perc)
         return [Graph.build(ds.x, ds.edge_index, ds.y, ds.train_mask,
@@ -155,10 +156,11 @@ def prepare_batches(cfg: Config, ds: HostDataset, device="cuda"):
     method = resolve_partitioner("native")
     part = partition_nodes(ds.edge_index, ds.num_nodes, num_parts,
                            method=method)
+    parallel = cfg.data_parallel == "on"
     # the degree-capped packer may leave parts unused (num_parts is a
     # ceiling, like METIS's nparts): drop them, no empty padded batches
     used = np.unique(part)
-    if used.size < num_parts:
+    if used.size < num_parts and not parallel:
         remap = np.full(num_parts, -1, np.int32)
         remap[used] = np.arange(used.size, dtype=np.int32)
         part = remap[part]
@@ -166,7 +168,8 @@ def prepare_batches(cfg: Config, ds: HostDataset, device="cuda"):
     batches = induced_subgraphs(ds.x, ds.edge_index, ds.y, ds.train_mask,
                                 ds.val_mask, ds.test_mask, part, num_parts,
                                 tile_index=tiles,
-                                shape_classes=cfg.shape_classes,
+                                shape_classes=1 if parallel
+                                else cfg.shape_classes,
                                 device=device)
     return batches, q, method
 
@@ -213,9 +216,10 @@ def dense_status(cfg: Config, n: int, q: int, device) -> str:
 
 
 def log_fastpath_status(cfg: Config, batches, q: int, device, log_fn,
-                        n_trained: int = 0) -> None:
+                        n_trained: int = 0, epoch_line: str = "") -> None:
     """Whether the tile score kernel (K6) and the dense-subgraph route are
-    engaged and why not, how the epoch runs and why, and the device."""
+    engaged and why not, how the epoch runs and why (``epoch_line`` when
+    given), and the device."""
     g0 = batches[0]
     dev = torch.device(device)
     if not (cfg.mode == "learned" and cfg.pipeline == "hybrid"
@@ -238,7 +242,9 @@ def log_fastpath_status(cfg: Config, batches, q: int, device, log_fn,
     log_fn("[fastpath] dense_subgraph="
            + dense_status(cfg, g0.num_nodes, q, dev))
     route, why = epoch_route(cfg, len(batches), dev)
-    if route == "graphed":
+    if epoch_line:
+        log_fn(f"[fastpath] epoch={epoch_line}")
+    elif route == "graphed":
         shapes = sorted({g.num_edges for g in batches}, reverse=True)
         sizes = [sum(g.num_edges == e for g in batches) for e in shapes]
         log_fn(f"[fastpath] epoch=graphed ({why}: {len(batches)} batches, "
@@ -321,13 +327,32 @@ def _evaluate(evals, batches, small, gen, stream_seed):
     return acc
 
 
+def _silent(*args, **kwargs):
+    pass
+
+
 def run_experiment(cfg: Config, ds: Optional[HostDataset] = None,
                    log_fn=print, device="cuda") -> List[RunResult]:
     cfg.validate()
-    check_ported(cfg)
     dev = resolve_device(device)
+    if cfg.multihost or cfg.halo or cfg.data_parallel == "on":
+        # the process group (parallel/distributed.py); a rank on a card
+        # binds cuda:LOCAL_RANK
+        mesh = (init_distributed(cfg.coordinator_address, cfg.num_processes,
+                                 cfg.process_id, dev) if cfg.multihost
+                else init_distributed(device=dev))
+        dev = mesh.device
+        if not mesh.primary:
+            # the other ranks compute everything and stay silent; rank 0
+            # owns the log, the CSV, checkpoints and plots
+            log_fn = _silent
+            cfg = cfg.replace(save_csv=False, plot_curve=False)
     if ds is None:
         ds = get_dataset(cfg)
+    if cfg.halo:
+        return run_experiment_halo(cfg, ds, mesh, log_fn)
+    if cfg.data_parallel == "on":
+        return run_experiment_parallel(cfg, ds, mesh, log_fn)
     batches, q, partitioner = prepare_batches(cfg, ds, dev)
     if cfg.debug_checks:
         from ..utils.debug import validate_graph
@@ -365,40 +390,134 @@ def run_experiment(cfg: Config, ds: Optional[HostDataset] = None,
         log_fastpath_status(cfg, batches, q, dev, log_fn, n_trained)
     route, _ = epoch_route(cfg, n_batches, dev)
 
-    results: List[RunResult] = []
-    for run in range(cfg.runs):
-        model = init_model(cfg, batches[0].x.shape[1], ds.num_classes, run,
-                           dev)
-        opt = DualOptimizer.create(model, cfg.GNN, cfg.lr, cfg.weight_decay)
+    def make_steps(model, opt):
         if route == "graphed":
             # the train and eval graphs of a class share its buffers and
             # memory pool
             classes = graphed.ShapeClasses()
-            steps = make_scan_epoch_step(cfg, model, opt, q, cfg.epochs,
-                                         n_batches, classes)
-            evals = make_scan_eval_step(cfg, model, q, classes)
-        else:
-            steps = {2: make_train_step(cfg, model, opt, q, cfg.epochs),
-                     1: make_train_step(cfg, model, opt, q, cfg.epochs,
-                                        force_small=True)}
-            evals = {0: make_eval_step(cfg, model, q),
-                     1: make_eval_step(cfg, model, q, force_small=True)}
+            return (make_scan_epoch_step(cfg, model, opt, q, cfg.epochs,
+                                         n_batches, classes),
+                    make_scan_eval_step(cfg, model, q, classes))
+        return ({2: make_train_step(cfg, model, opt, q, cfg.epochs),
+                 1: make_train_step(cfg, model, opt, q, cfg.epochs,
+                                    force_small=True)},
+                {0: make_eval_step(cfg, model, q),
+                 1: make_eval_step(cfg, model, q, force_small=True)})
+
+    shuffle = {}
+
+    def train_epoch(steps, epoch, gen, run):
+        # each run's shuffles from seed + run, one per epoch; a resumed run
+        # replays the ones of the epochs it skips
+        if shuffle.get("run") != run:
+            shuffle.update(run=run, rng=np.random.default_rng(cfg.seed + run),
+                           drawn=0)
+        while shuffle["drawn"] <= epoch:
+            order = _epoch_order(shuffle["rng"], class_members)
+            shuffle["drawn"] += 1
+        loss_acc, cond_acc, temp = _train_epoch(steps, batches, order, plan,
+                                                epoch, gen, cfg.seed, run)
+        # the reference divides by len(cluster_loader), skipped batches
+        # included
+        return loss_acc, cond_acc, temp, n_batches, n_trained
+
+    def evaluate(evals, gen, stream_seed):
+        return _evaluate(evals, batches, small, gen, stream_seed)
+
+    def after_run(run, res, steps, evals):
+        if route != "graphed":
+            return
+        res.graphs = dict(shape_classes=len(steps.classes),
+                          train_graphs=len(steps.graphs),
+                          eval_graphs=len(evals.graphs),
+                          train_replays=steps.graphs.replays,
+                          eval_replays=evals.graphs.replays)
+        if cfg.log:
+            log_fn(f"[fastpath] graphs run={run}: " + " ".join(
+                f"{k}={v}" for k, v in res.graphs.items()))
+
+    return _run_loop(cfg, ds, dev, log_fn, _Route(
+        make_steps, train_epoch, evaluate, epoch_route=route,
+        after_run=after_run), batches[0].x.shape[1], batch_plan,
+        sum(valid_e), profile=((batches[profile_bi], q) if cfg.gpu_profile
+                               else None))
+
+
+def _log_segment_profile(profile, g, gen, seed, epoch, epoch_s, n_batches,
+                         log_fn):
+    """The ``[gpu-profile]`` line of an epoch (the JAX driver's format):
+    ``profile``'s segments on batch ``g``, its draws from ``gen`` reseeded
+    with ``seed``, and the card's memory (peak: the run's)."""
+    from ..utils.profiler import device_memory_mb
+    gen.manual_seed(seed)
+    segs, seg_mb = profile(g, gen)
+    mem = device_memory_mb(g.x.device)
+    mem_s = (f"allocated_mb={mem['allocated_mb']:.1f} "
+             f"peak_mb={max(mem['peak_mb'], profile.peak_mb):.1f}"
+             if mem else "mem=n/a")
+    seg_s = " ".join(f"{k}_ms={v:.2f}" for k, v in segs.items())
+    mb_s = " ".join(f"{k}_mb={v:.1f}" for k, v in seg_mb.items())
+    log_fn(f"[gpu-profile] epoch={epoch} "
+           f"step_time_ms={epoch_s / max(n_batches, 1) * 1e3:.2f} "
+           f"batches={n_batches} {seg_s} {mb_s} {mem_s}")
+
+
+def _device_peak_mem_mb(dev: torch.device) -> Optional[float]:
+    """Peak bytes allocated by PyTorch on a CUDA device, in MiB."""
+    if dev.type != "cuda":
+        return None
+    return torch.cuda.max_memory_allocated(dev) / (1024 ** 2)
+
+
+@dataclass
+class _Route:
+    """How ``_run_loop`` trains and evaluates: ``make_steps(model, opt) ->
+    (steps, evals)``; ``train_epoch(steps, epoch, gen, run) -> (loss sum,
+    gate count, temperature, steps, updates)``, the sums device scalars
+    (the epoch's one readback); ``evaluate(evals, gen, stream_seed)`` ->
+    the summed eval dict; ``after_run(run, res, steps, evals)``. ``tag`` goes
+    into the checkpoint's and the plot's names, ``label`` after the run's
+    number, ``stats`` into the ``[stats]`` line."""
+    make_steps: Callable
+    train_epoch: Callable
+    evaluate: Callable
+    epoch_route: str = "loop"
+    tag: str = ""
+    label: str = ""
+    stats: str = ""
+    after_run: Optional[Callable] = None
+
+
+def _run_loop(cfg: Config, ds: HostDataset, dev, log_fn, route: _Route,
+              in_channels: int, plan: dict, valid_edges: int,
+              profile=None) -> List[RunResult]:
+    """The runs (main.py's loop), for every route: per run the model and
+    optimizer (the same on every rank: one seed), resume, the epoch loop,
+    the eval per epoch and the best-val parameters, checkpoints (rank 0
+    writes, every rank restores), early stop, the final eval on the
+    best-val parameters, the log, ``[stats]``, the plot and the CSV.
+    ``profile``: (graph, q) of ``--gpu_profile``'s segments, or None."""
+    infix = f"_{route.tag}" if route.tag else ""
+    results: List[RunResult] = []
+    for run in range(cfg.runs):
+        model = init_model(cfg, in_channels, ds.num_classes, run, dev)
+        opt = DualOptimizer.create(model, cfg.GNN, cfg.lr, cfg.weight_decay)
+        steps, evals = route.make_steps(model, opt)
         gen = torch.Generator(device=dev)
         seg_profile = None
-        if cfg.gpu_profile:
+        if profile is not None:
             from ..utils.profiler import make_segment_profiler
-            seg_profile = make_segment_profiler(cfg, model, q)
+            seg_profile = make_segment_profiler(cfg, model, profile[1])
 
-        res = RunResult(plan=batch_plan, epoch_route=route)
+        res = RunResult(plan=plan, epoch_route=route.epoch_route)
         best_state = None
         best_temp = 0.0
         epoch_times = res.epoch_times
-        shuffle_rng = np.random.default_rng(cfg.seed + run)
         num_iteration = cfg.epochs
         start_epoch = 0
         ckpt_path = os.path.join(
             cfg.results_dir, "ckpt",
-            f"{cfg.dataset}_{cfg.mode}_{cfg.pipeline}_run{run}.pt")
+            f"{cfg.dataset}_{cfg.mode}_{cfg.pipeline}{infix}_run{run}.pt")
         if cfg.resume:
             st = load_checkpoint(ckpt_path, dev)
             if st is not None:
@@ -416,8 +535,6 @@ def run_experiment(cfg: Config, ds: Optional[HostDataset] = None,
                 best_state = st.best_params or {
                     k: v.detach().clone()
                     for k, v in model.state_dict().items()}
-                for _ in range(start_epoch):     # the skipped shuffles
-                    _epoch_order(shuffle_rng, class_members)
                 if cfg.log:
                     log_fn(f"resumed run {run} from epoch {start_epoch} "
                            f"(best_val_f1={st.best_val_f1:.4f})")
@@ -425,14 +542,11 @@ def run_experiment(cfg: Config, ds: Optional[HostDataset] = None,
 
         for epoch in range(start_epoch, cfg.epochs):
             t0 = time.perf_counter()
-            order = _epoch_order(shuffle_rng, class_members)
-            res.total_updates += n_trained
-            loss_acc, cond_acc, temp = _train_epoch(
-                steps, batches, order, plan, epoch, gen, cfg.seed, run)
-            # the epoch's one readback; the reference divides by
-            # len(cluster_loader), skipped batches included
+            loss_acc, cond_acc, temp, n_steps, n_updates = \
+                route.train_epoch(steps, epoch, gen, run)
+            res.total_updates += n_updates
             loss_sum, cond = torch.stack([loss_acc, cond_acc]).tolist()
-            loss = loss_sum / n_batches
+            loss = loss_sum / n_steps
             res.conditional_updates += int(cond)
             res.losses.append(loss)
             epoch_times.append(time.perf_counter() - t0)
@@ -440,16 +554,14 @@ def run_experiment(cfg: Config, ds: Optional[HostDataset] = None,
                 log_fn(f"[epoch-time] epoch={epoch} "
                        f"sec={epoch_times[-1]:.3f}")
             if seg_profile is not None:
-                _log_segment_profile(seg_profile, batches[profile_bi], gen,
+                _log_segment_profile(seg_profile, profile[0], gen,
                                      batch_seed(cfg.seed, run, 2**29 + epoch),
-                                     epoch, epoch_times[-1], n_batches,
-                                     log_fn)
+                                     epoch, epoch_times[-1], n_steps, log_fn)
 
             if cfg.eval:
                 t1 = time.perf_counter()
-                agg = aggregate_eval([_evaluate(
-                    evals, batches, small, gen,
-                    batch_seed(cfg.seed, run, 2**30 + epoch))])
+                agg = aggregate_eval([route.evaluate(
+                    evals, gen, batch_seed(cfg.seed, run, 2**30 + epoch))])
                 res.eval_times.append(time.perf_counter() - t1)
                 if cfg.stats and cfg.log and epoch < 16:
                     log_fn(f"[eval-time] epoch={epoch} "
@@ -478,14 +590,20 @@ def run_experiment(cfg: Config, ds: Optional[HostDataset] = None,
 
             if cfg.checkpoint_every and \
                     (epoch + 1) % cfg.checkpoint_every == 0:
-                save_checkpoint(ckpt_path, TrainState(
-                    params=model.state_dict(), opt_state=opt.state_dict(),
-                    epoch=epoch, best_val_f1=res.best_val_f1,
-                    test_at_best_val=res.test_at_best_val,
-                    best_temperature=best_temp, losses=res.losses,
-                    best_params=best_state, best_test_f1=res.best_test_f1,
-                    train_curve=res.train_curve, val_curve=res.val_curve,
-                    test_curve=res.test_curve))
+                if is_primary():
+                    save_checkpoint(ckpt_path, TrainState(
+                        params=model.state_dict(),
+                        opt_state=opt.state_dict(), epoch=epoch,
+                        best_val_f1=res.best_val_f1,
+                        test_at_best_val=res.test_at_best_val,
+                        best_temperature=best_temp, losses=res.losses,
+                        best_params=best_state,
+                        best_test_f1=res.best_test_f1,
+                        train_curve=res.train_curve,
+                        val_curve=res.val_curve, test_curve=res.test_curve))
+                if torch.distributed.is_initialized():
+                    # no rank runs ahead of a checkpoint being written
+                    torch.distributed.barrier()
 
             if epoch >= 5 and float(np.std(res.losses[-5:])) < \
                     cfg.convergence:
@@ -501,23 +619,15 @@ def run_experiment(cfg: Config, ds: Optional[HostDataset] = None,
         # (main.py:264-270)
         if best_state is not None:
             model.load_state_dict(best_state)
-        agg = aggregate_eval([_evaluate(
-            evals, batches, small, gen,
-            batch_seed(cfg.seed, run, 2**31 - 1))])
+        agg = aggregate_eval([route.evaluate(
+            evals, gen, batch_seed(cfg.seed, run, 2**31 - 1))])
         res.final_train_f1 = agg["train_f1"]
         res.final_val_f1 = agg["val_f1"]
         res.final_test_f1 = agg["test_f1"]
-        if route == "graphed":
-            res.graphs = dict(shape_classes=len(classes),
-                              train_graphs=len(steps.graphs),
-                              eval_graphs=len(evals.graphs),
-                              train_replays=steps.graphs.replays,
-                              eval_replays=evals.graphs.replays)
-            if cfg.log:
-                log_fn(f"[fastpath] graphs run={run}: " + " ".join(
-                    f"{k}={v}" for k, v in res.graphs.items()))
+        if route.after_run is not None:
+            route.after_run(run, res, steps, evals)
 
-        log_fn(f"Run: {run}")
+        log_fn(f"Run: {run}{route.label}")
         log_fn(f"Mean epoch time of run {res.mean_epoch_time:.4f}")
         log_fn(f"Iteration:  {res.num_iterations}")
         log_fn(f"EdgeMLP updated {res.conditional_updates}/"
@@ -527,9 +637,9 @@ def run_experiment(cfg: Config, ds: Optional[HostDataset] = None,
                f"{res.final_test_f1:.4f}")
         # edges/s = valid (unpadded) edges trained per second; steady =
         # over the median epoch (the first one holds the warm-up)
-        res.edges_per_s = sum(valid_e) / max(res.mean_epoch_time, 1e-9)
+        res.edges_per_s = valid_edges / max(res.mean_epoch_time, 1e-9)
         res.edges_per_s_steady = (
-            sum(valid_e) / max(float(np.median(epoch_times)), 1e-9)
+            valid_edges / max(float(np.median(epoch_times)), 1e-9)
             if epoch_times else 0.0)
         res.peak_device_mem_mb = _device_peak_mem_mb(dev)
         if seg_profile is not None and res.peak_device_mem_mb is not None:
@@ -541,6 +651,7 @@ def run_experiment(cfg: Config, ds: Optional[HostDataset] = None,
             mem = res.peak_device_mem_mb
             mem_s = f"{mem:.2f}" if mem is not None else "NA"
             log_fn(f"[stats] pipeline={cfg.pipeline} run={run} "
+                   f"{route.stats}"
                    f"train_time_sec={res.train_time_sec:.4f} "
                    f"edges_per_s={res.edges_per_s:.0f} "
                    f"edges_per_s_steady={res.edges_per_s_steady:.0f} "
@@ -552,8 +663,8 @@ def run_experiment(cfg: Config, ds: Optional[HostDataset] = None,
             os.makedirs(cfg.results_dir, exist_ok=True)
             plot_learning_curves(
                 run, res.train_curve, res.val_curve, res.test_curve,
-                path=os.path.join(cfg.results_dir,
-                                  f"curves_{ds.name}_{cfg.mode}_run{run}.png"))
+                path=os.path.join(cfg.results_dir, f"curves_{ds.name}_"
+                                  f"{cfg.mode}{infix}_run{run}.png"))
         if cfg.save_csv:
             _append_csv(cfg, ds, run, res)
         results.append(res)
@@ -562,30 +673,151 @@ def run_experiment(cfg: Config, ds: Optional[HostDataset] = None,
     return results
 
 
-def _log_segment_profile(profile, g, gen, seed, epoch, epoch_s, n_batches,
-                         log_fn):
-    """The ``[gpu-profile]`` line of an epoch (the JAX driver's format):
-    ``profile``'s segments on batch ``g``, its draws from ``gen`` reseeded
-    with ``seed``, and the card's memory (peak: the run's)."""
-    from ..utils.profiler import device_memory_mb
-    gen.manual_seed(seed)
-    segs, seg_mb = profile(g, gen)
-    mem = device_memory_mb(g.x.device)
-    mem_s = (f"allocated_mb={mem['allocated_mb']:.1f} "
-             f"peak_mb={max(mem['peak_mb'], profile.peak_mb):.1f}"
-             if mem else "mem=n/a")
-    seg_s = " ".join(f"{k}_ms={v:.2f}" for k, v in segs.items())
-    mb_s = " ".join(f"{k}_mb={v:.1f}" for k, v in seg_mb.items())
-    log_fn(f"[gpu-profile] epoch={epoch} "
-           f"step_time_ms={epoch_s / max(n_batches, 1) * 1e3:.2f} "
-           f"batches={n_batches} {seg_s} {mb_s} {mem_s}")
+def run_experiment_parallel(cfg: Config, ds: HostDataset, mesh,
+                            log_fn=print) -> List[RunResult]:
+    """Partition data-parallel experiment (JAX driver.py:640-857): the
+    partitions, rounded up to a multiple of W, in super-steps of W; rank r
+    trains ``batches[i + r]`` of the super-step starting at i
+    (``parallel/partitioned.py``), one synchronised update per super-step;
+    the eval sums every rank's partitions. Each super-step samples q
+    (clamped to the padded edge count) on every partition: a partition
+    with fewer valid edges than q takes them all (padding selections
+    weigh nothing), the reference's small-batch branch subsumed."""
+    from ..parallel import make_parallel_eval_step, make_parallel_train_step
+    from ..utils.debug import validate_graph
+    w, dev = mesh.world, mesh.device
+    parts = cfg.num_partitions or max(
+        w, int(np.ceil(ds.num_edges / cfg.metis_threshold)))
+    cfg_p = cfg.replace(num_partitions=int(np.ceil(parts / w) * w))
+    # a rank keeps only its own partitions: with several ranks they are
+    # built on the host and the rank's moved to its device
+    batches, q, partitioner = prepare_batches(
+        cfg_p, ds, dev, build_device=dev if w == 1 else "cpu")
+    if len(batches) == 1:
+        raise ValueError("data_parallel=on needs a partitioned graph; lower "
+                         "--metis_threshold or set --num_partitions")
+    if len(batches) % w:
+        raise ValueError(f"{len(batches)} partitions do not fill "
+                         f"super-steps of {w} ranks")
+    q = min(q, batches[0].num_edges)
+    valid_edges = sum(int(g.edge_mask.sum()) for g in batches)
+    n_groups = len(batches) // w
+    local = [g.to(dev) for g in batches[mesh.rank::w]]
+    del batches
+    if cfg.debug_checks:
+        for i, g in enumerate(local):
+            validate_graph(g, name=f"batch{i * w + mesh.rank}")
+    plan = dict(parts=n_groups * w, q=q, partitioner=partitioner, world=w,
+                super_steps=n_groups, shape_classes=[[n_groups * w,
+                                                      local[0].num_edges]],
+                valid_edges=valid_edges)
+    if cfg.log:
+        log_fn(f"dataset={ds.name} N={ds.num_nodes} E={ds.num_edges} "
+               f"He={ds.He:.4f} parts={plan['parts']} ranks={w} "
+               f"super_steps/epoch={n_groups} q={q} "
+               f"partitioner={partitioner}")
+        log_fastpath_status(
+            cfg, local, q, dev, log_fn, epoch_line=(
+                f"per-batch loop (data_parallel over {w} ranks: {n_groups} "
+                "eager super-steps per epoch, one all-reduce each; the JAX "
+                "parallel driver has no scan, so scan_epoch does not "
+                "apply)"))
+
+    def make_steps(model, opt):
+        return (make_parallel_train_step(cfg, model, opt, q, cfg.epochs,
+                                         mesh),
+                make_parallel_eval_step(cfg, model, q, mesh))
+
+    def train_epoch(step, epoch, gen, run):
+        loss_acc = torch.zeros((), device=dev)
+        cond_acc = torch.zeros((), device=dev)
+        temp = 1.0
+        for gi, g in enumerate(local):
+            m = step(g, epoch,
+                     batch_seed(cfg.seed, run, epoch * n_groups + gi + 1),
+                     gen)
+            loss_acc = loss_acc + m.loss
+            cond_acc = cond_acc + m.conditional_update
+            temp = m.temperature
+        return loss_acc, cond_acc, temp, n_groups, n_groups * w
+
+    def evaluate(ev, gen, stream_seed):
+        acc = None
+        for g in local:
+            acc = accumulate_eval_device(acc, ev(g, stream_seed, gen))
+        return acc
+
+    return _run_loop(cfg, ds, dev, log_fn, _Route(
+        make_steps, train_epoch, evaluate, tag="par",
+        label=f" (data-parallel x{w})", stats=f"parallel={w} "),
+        local[0].x.shape[1], plan, valid_edges,
+        profile=(local[0], q) if cfg.gpu_profile else None)
 
 
-def _device_peak_mem_mb(dev: torch.device) -> Optional[float]:
-    """Peak bytes allocated by PyTorch on a CUDA device, in MiB."""
-    if dev.type != "cuda":
-        return None
-    return torch.cuda.max_memory_allocated(dev) / (1024 ** 2)
+# the halo route's --gpu_profile runs whole-graph segments stand-alone;
+# past this many edges the JAX driver skips them (one chip's memory)
+HALO_PROFILE_MAX_EDGES = 5_000_000
+
+
+def run_experiment_halo(cfg: Config, ds: HostDataset, mesh,
+                        log_fn=print) -> List[RunResult]:
+    """Halo-exchange experiment (JAX driver.py:859-1042): each rank owns a
+    node shard of the native partition into W parts and all its inbound
+    edges, the layers exchange boundary rows (``parallel/halo_train.py``),
+    so the W ranks compute the full graph's semantics; one synchronised
+    step per epoch."""
+    from ..parallel import (build_halo_batch, make_halo_eval_step,
+                            make_halo_train_step)
+    w, dev = mesh.world, mesh.device
+    hb = build_halo_batch(ds.x, ds.edge_index, ds.y, ds.train_mask,
+                          ds.val_mask, ds.test_mask, ds.prob, w,
+                          ds.num_classes, sample_perc=cfg.sample_perc,
+                          rank=mesh.rank, device=dev)
+    plan = dict(world=w, q_loc=hb.q_loc, round_sizes=list(hb.round_sizes),
+                ext_rows=hb.ext_rows, gather_rows=hb.gather_rows,
+                valid_edges=hb.valid_edges)
+    if cfg.log:
+        log_fn(f"dataset={ds.name} N={ds.num_nodes} E={ds.num_edges} "
+               f"halo ranks={w} q_loc={hb.q_loc}")
+        saved = 1.0 - hb.ext_rows / max(hb.gather_rows, 1)
+        log_fn(f"[fastpath] halo_exchange=all_to_all "
+               f"rows_per_exchange={hb.ext_rows} "
+               f"vs_all_gather={hb.gather_rows} "
+               f"({100 * saved:.1f}% traffic saved; "
+               f"rounds={list(hb.round_sizes)})")
+        log_fn("[fastpath] epoch=per-batch loop (halo: one eager step per "
+               "epoch; the JAX halo driver has no scan, so scan_epoch does "
+               "not apply)")
+        name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+                else "host")
+        log_fn(f"[fastpath] device={dev} ({name})")
+    profile = None
+    if cfg.gpu_profile:
+        if ds.num_edges <= HALO_PROFILE_MAX_EDGES:
+            profile = (Graph.build(ds.x, ds.edge_index, ds.y, ds.train_mask,
+                                   ds.val_mask, ds.test_mask, prob=ds.prob,
+                                   num_classes=ds.num_classes, device=dev),
+                       hb.q_loc * w)
+        else:
+            log_fn(f"[gpu-profile] skipped: E={ds.num_edges} > "
+                   f"{HALO_PROFILE_MAX_EDGES} (whole-graph stand-alone "
+                   "segments)")
+
+    def make_steps(model, opt):
+        return (make_halo_train_step(cfg, model, opt, cfg.epochs, mesh),
+                make_halo_eval_step(cfg, model, mesh))
+
+    def train_epoch(step, epoch, gen, run):
+        m = step(hb, epoch, batch_seed(cfg.seed, run, epoch + 1), gen)
+        return m.loss, m.conditional_update, m.temperature, 1, 1
+
+    def evaluate(ev, gen, stream_seed):
+        return ev(hb, stream_seed, gen)
+
+    return _run_loop(cfg, ds, dev, log_fn, _Route(
+        make_steps, train_epoch, evaluate, tag="halo",
+        label=f" (halo x{w})", stats=f"halo={w} "), ds.x.shape[1], plan,
+        hb.valid_edges, profile)
 
 
 def _append_csv(cfg: Config, ds: HostDataset, run: int, res: RunResult):

@@ -270,7 +270,8 @@ def make_baseline_loss(cfg: Config, model, q: int,
     return loss_fn
 
 
-def _grads(loss, params):
+def param_grads(loss, params):
+    """d loss / d params, zeros for a parameter the loss does not reach."""
     grads = torch.autograd.grad(loss, params, allow_unused=True)
     return [torch.zeros_like(p) if g is None else g
             for g, p in zip(grads, params)]
@@ -290,7 +291,7 @@ def _step_cases(cfg: Config, model, opt: DualOptimizer, q: int):
 
             def case(g: Graph, generator: torch.Generator):
                 loss = loss_fn(g, generator)
-                opt.step_all(_grads(loss, opt.params))
+                opt.step_all(param_grads(loss, opt.params))
                 zero = torch.zeros((), device=g.x.device)
                 return loss.detach(), zero, zero, zero
             return case
@@ -301,13 +302,13 @@ def _step_cases(cfg: Config, model, opt: DualOptimizer, q: int):
     def small(g: Graph, generator: torch.Generator):
         out = _apply_gnn(model, g.x, g.senders, g.receivers, None, generator)
         loss = masked_cross_entropy(out, g.y, g.train_mask)
-        opt.step_gnn_only(_grads(loss, opt.params))
+        opt.step_gnn_only(param_grads(loss, opt.params))
         zero = torch.zeros((), device=g.x.device)
         return loss.detach(), zero, zero, zero
 
     def sampled(g: Graph, generator: torch.Generator):
         total, (gate, lf1, rf1) = learned_loss(g, generator)
-        opt.step_learned(_grads(total, opt.params), gate)
+        opt.step_learned(param_grads(total, opt.params), gate)
         return total.detach(), gate.float(), lf1, rf1
 
     return {1: small, 2: sampled}

@@ -182,6 +182,8 @@ def test_port_imports_no_jax():
         "assert 'sgs_gnn_tpu_torch.utils.profiler' in names\n"
         "assert 'sgs_gnn_tpu_torch.utils.debug' in names\n"
         "assert 'sgs_gnn_tpu_torch.viz.curves' in names\n"
+        "assert 'sgs_gnn_tpu_torch.parallel.partitioned' in names\n"
+        "assert 'sgs_gnn_tpu_torch.parallel.halo_train' in names\n"
         "assert 'matplotlib' not in sys.modules\n"
         "print(len(names))\n"
         "print(bad, file=sys.stderr)\n"

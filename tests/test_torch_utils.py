@@ -216,9 +216,12 @@ def test_experiment_with_the_diagnostics_flags(tmp_path):
                 sparse_edge_mlp=True, epochs=3, convergence=0.0,
                 save_csv=False, results_dir=str(tmp_path), stats=True)
     flags = dict(gpu_profile=True, debug_checks=True, plot_curve=True)
-    driver.check_ported(Config(**flags))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        driver.check_ported(Config(**flags, halo=True))
+    # the halo route profiles the whole graph's segments (one rank here)
+    halo_lines = []
+    driver.run_experiment(Config(**dict(base, epochs=1), **flags, halo=True),
+                          log_fn=halo_lines.append, device="cpu")
+    assert sum(ln.startswith("[gpu-profile] epoch=0") for ln in halo_lines) \
+        == 1
     lines = []
     (res,) = driver.run_experiment(Config(**base, **flags),
                                    log_fn=lines.append, device="cpu")
