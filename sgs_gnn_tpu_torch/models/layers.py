@@ -133,10 +133,8 @@ class GCNConv(nn.Module):
         if exchange is not None:
             # halo: the scaled projections of boundary rows arrive by the
             # exchange; senders address the extended table
-            msgs = gather_rows(exchange(xs), senders).float()
-            if edge_weight is not None:
-                msgs = msgs * edge_weight.float()[:, None]
-            agg = scatter_add(msgs, receivers, n)
+            agg = spmm(senders, receivers, edge_weight,
+                       exchange(xs).float(), n)
         elif dense:
             agg = senders.adj.to(xw.dtype) @ xs
         else:
@@ -290,10 +288,9 @@ class GINConv(nn.Module):
                 exchange=None, edge_mask=None):
         if exchange is not None or edge_mask is not None:
             x_src = exchange(x) if exchange is not None else x
-            msgs = gather_rows(x_src, senders)
-            if edge_mask is not None:
-                msgs = msgs * edge_mask.to(msgs.dtype)[:, None]
-            agg = scatter_add(msgs, receivers, x.shape[0])
+            agg = spmm(senders, receivers,
+                       None if edge_mask is None else edge_mask.float(),
+                       x_src.float(), x.shape[0])
         elif isinstance(senders, DenseEdges):
             agg = (senders.adj.to(x.dtype) @ x).float()
         else:

@@ -10,8 +10,11 @@ the tests) and joins them with ``torch.distributed.init_process_group``:
     --num_processes W --process_id r``); otherwise from ``torchrun``'s
     environment (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
     ``MASTER_ADDR``/``MASTER_PORT``); otherwise as a one-rank group on the
-    caller's device. Idempotent, as JAX's is: a second call returns the
-    group it joined. A rank on a CUDA device binds ``cuda:LOCAL_RANK``
+    caller's device. ``init_method`` (any URL ``init_process_group``
+    takes, e.g. ``file://`` for ranks of one host) replaces the
+    coordinator's ``tcp://`` address, with the same rank and world, and
+    ``timeout`` bounds the start and every collective. Idempotent, as
+    JAX's is: a second call returns the group it joined. A rank on a CUDA device binds ``cuda:LOCAL_RANK``
     and talks NCCL; on the CPU it talks gloo (``mesh.backend_for``). A
     failed start raises: no rank falls back to another backend or device.
   * ``is_primary()``: rank 0 owns the log, the CSV, checkpoints and plots.
@@ -56,20 +59,21 @@ def _rank_device(device, rank: int) -> torch.device:
 
 def init_distributed(coordinator_address: str = "", num_processes: int = 1,
                      process_id: int = 0, device="cuda",
+                     init_method: Optional[str] = None,
                      timeout: Optional[datetime.timedelta] = None) -> Mesh:
     """Join (or create) the process group and return this rank's ``Mesh``
-    (module docstring for where the group comes from). ``timeout`` bounds
-    the start and every collective (None: torch's default)."""
-    if num_processes > 1 and not coordinator_address:
+    (module docstring for where the group comes from; ``timeout`` None is
+    torch's default)."""
+    if num_processes > 1 and not (coordinator_address or init_method):
         raise ValueError("a multi-process run needs --coordinator_address "
                          "(host:port of rank 0)")
     if dist.is_initialized():
         return make_mesh(device=_rank_device(device, dist.get_rank()))
     env = os.environ
     kw = {} if timeout is None else dict(timeout=timeout)
-    if num_processes > 1:
+    if num_processes > 1 or init_method:
         rank, world = process_id, num_processes
-        kw.update(init_method=f"tcp://{coordinator_address}",
+        kw.update(init_method=init_method or f"tcp://{coordinator_address}",
                   rank=rank, world_size=world)
     elif "RANK" in env and "WORLD_SIZE" in env:
         rank, world = int(env["RANK"]), int(env["WORLD_SIZE"])

@@ -192,11 +192,8 @@ def main(argv=None):
     device = device_from_args(args)
     cfg = config_from_args(argv)
     print(cfg.dataset)
-    import torch.distributed as dist
     from .driver import run_experiment
     run_experiment(cfg, device=device)
-    if dist.is_initialized():
-        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -55,7 +55,8 @@ update per epoch). The group comes from ``--multihost``'s
 ``--coordinator_address``/``--num_processes``/``--process_id``, else from
 ``torchrun``'s environment, else it is a one-rank group on the caller's
 device (``parallel/distributed.py``); ``--multihost`` alone runs the
-sequential path on every rank. Only rank 0 logs and writes the CSV,
+sequential path on every rank. A group that ``run_experiment`` starts, it
+also ends; one the caller started stays. Only rank 0 logs and writes the CSV,
 checkpoints and plots; every rank restores a checkpoint on resume. Both
 loops are eager: the JAX parallel driver has no scan, so ``scan_epoch``
 does not apply to them. Every flag of the JAX driver runs.
@@ -335,18 +336,28 @@ def run_experiment(cfg: Config, ds: Optional[HostDataset] = None,
                    log_fn=print, device="cuda") -> List[RunResult]:
     cfg.validate()
     dev = resolve_device(device)
-    if cfg.multihost or cfg.halo or cfg.data_parallel == "on":
-        # the process group (parallel/distributed.py); a rank on a card
-        # binds cuda:LOCAL_RANK
-        mesh = (init_distributed(cfg.coordinator_address, cfg.num_processes,
-                                 cfg.process_id, dev) if cfg.multihost
-                else init_distributed(device=dev))
-        dev = mesh.device
-        if not mesh.primary:
-            # the other ranks compute everything and stay silent; rank 0
-            # owns the log, the CSV, checkpoints and plots
-            log_fn = _silent
-            cfg = cfg.replace(save_csv=False, plot_curve=False)
+    if not (cfg.multihost or cfg.halo or cfg.data_parallel == "on"):
+        return _run_experiment(cfg, ds, log_fn, dev, None)
+    # the process group (parallel/distributed.py); a rank on a card binds
+    # cuda:LOCAL_RANK
+    owned = not torch.distributed.is_initialized()
+    mesh = (init_distributed(cfg.coordinator_address, cfg.num_processes,
+                             cfg.process_id, dev) if cfg.multihost
+            else init_distributed(device=dev))
+    if not mesh.primary:
+        # the other ranks compute everything and stay silent; rank 0 owns
+        # the log, the CSV, checkpoints and plots
+        log_fn = _silent
+        cfg = cfg.replace(save_csv=False, plot_curve=False)
+    try:
+        return _run_experiment(cfg, ds, log_fn, mesh.device, mesh)
+    finally:
+        if owned and torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+
+
+def _run_experiment(cfg: Config, ds: Optional[HostDataset], log_fn, dev,
+                    mesh) -> List[RunResult]:
     if ds is None:
         ds = get_dataset(cfg)
     if cfg.halo:
@@ -444,10 +455,13 @@ def run_experiment(cfg: Config, ds: Optional[HostDataset] = None,
 
 
 def _log_segment_profile(profile, g, gen, seed, epoch, epoch_s, n_batches,
-                         log_fn):
-    """The ``[gpu-profile]`` line of an epoch (the JAX driver's format):
+                         unit, log_fn):
+    """The ``[gpu-profile]`` line of an epoch (the JAX drivers' formats):
     ``profile``'s segments on batch ``g``, its draws from ``gen`` reseeded
-    with ``seed``, and the card's memory (peak: the run's)."""
+    with ``seed``, and the card's memory (peak: the run's). ``unit`` names
+    the step: "step" (``step_time_ms`` and ``batches``), "super_step"
+    (``super_step_time_ms`` and ``super_steps``) or "halo_step"
+    (``halo_step_time_ms``, one per epoch)."""
     from ..utils.profiler import device_memory_mb
     gen.manual_seed(seed)
     segs, seg_mb = profile(g, gen)
@@ -457,9 +471,12 @@ def _log_segment_profile(profile, g, gen, seed, epoch, epoch_s, n_batches,
              if mem else "mem=n/a")
     seg_s = " ".join(f"{k}_ms={v:.2f}" for k, v in segs.items())
     mb_s = " ".join(f"{k}_mb={v:.1f}" for k, v in seg_mb.items())
+    count = {"step": f"batches={n_batches} ",
+             "super_step": f"super_steps={n_batches} ",
+             "halo_step": ""}[unit]
     log_fn(f"[gpu-profile] epoch={epoch} "
-           f"step_time_ms={epoch_s / max(n_batches, 1) * 1e3:.2f} "
-           f"batches={n_batches} {seg_s} {mb_s} {mem_s}")
+           f"{unit}_time_ms={epoch_s / max(n_batches, 1) * 1e3:.2f} "
+           f"{count}{seg_s} {mb_s} {mem_s}")
 
 
 def _device_peak_mem_mb(dev: torch.device) -> Optional[float]:
@@ -477,7 +494,8 @@ class _Route:
     (the epoch's one readback); ``evaluate(evals, gen, stream_seed)`` ->
     the summed eval dict; ``after_run(run, res, steps, evals)``. ``tag`` goes
     into the checkpoint's and the plot's names, ``label`` after the run's
-    number, ``stats`` into the ``[stats]`` line."""
+    number, ``stats`` into the ``[stats]`` line, ``unit`` into the
+    ``[gpu-profile]`` line (``_log_segment_profile``)."""
     make_steps: Callable
     train_epoch: Callable
     evaluate: Callable
@@ -485,6 +503,7 @@ class _Route:
     tag: str = ""
     label: str = ""
     stats: str = ""
+    unit: str = "step"
     after_run: Optional[Callable] = None
 
 
@@ -556,7 +575,8 @@ def _run_loop(cfg: Config, ds: HostDataset, dev, log_fn, route: _Route,
             if seg_profile is not None:
                 _log_segment_profile(seg_profile, profile[0], gen,
                                      batch_seed(cfg.seed, run, 2**29 + epoch),
-                                     epoch, epoch_times[-1], n_steps, log_fn)
+                                     epoch, epoch_times[-1], n_steps,
+                                     route.unit, log_fn)
 
             if cfg.eval:
                 t1 = time.perf_counter()
@@ -749,7 +769,8 @@ def run_experiment_parallel(cfg: Config, ds: HostDataset, mesh,
 
     return _run_loop(cfg, ds, dev, log_fn, _Route(
         make_steps, train_epoch, evaluate, tag="par",
-        label=f" (data-parallel x{w})", stats=f"parallel={w} "),
+        label=f" (data-parallel x{w})", stats=f"parallel={w} ",
+        unit="super_step"),
         local[0].x.shape[1], plan, valid_edges,
         profile=(local[0], q) if cfg.gpu_profile else None)
 
@@ -816,7 +837,8 @@ def run_experiment_halo(cfg: Config, ds: HostDataset, mesh,
 
     return _run_loop(cfg, ds, dev, log_fn, _Route(
         make_steps, train_epoch, evaluate, tag="halo",
-        label=f" (halo x{w})", stats=f"halo={w} "), ds.x.shape[1], plan,
+        label=f" (halo x{w})", stats=f"halo={w} ", unit="halo_step"),
+        ds.x.shape[1], plan,
         hb.valid_edges, profile)
 
 

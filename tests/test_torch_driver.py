@@ -228,13 +228,14 @@ def test_checkpoint_roundtrip_is_atomic(tmp_path):
 def test_unported_options_raise(flag, item):
     """The options that raised until ROADMAP §1 item 8 ported them now
     run (here as a one-rank group on the CPU): the driver refuses none of
-    the JAX driver's flags."""
+    the JAX driver's flags. The group it started ends with the run."""
     assert item == 8 and not hasattr(driver, "check_ported")
     (res,) = driver.run_experiment(
         Config(dataset="Karate", metis_threshold=50, epochs=2,
                save_csv=False, **flag), log_fn=_quiet, device="cpu")
     assert len(res.losses) == 2 and np.isfinite(res.losses).all()
     assert res.total_updates > 0
+    assert not torch.distributed.is_initialized()
 
 
 # -------------------------------------------------------------------- CLI

@@ -49,10 +49,12 @@ from sgs_gnn_tpu_torch.train import pipelines
 def _rank_main(fn, rank, world, store, device, timeout_s, args, results):
     torch.set_num_threads(1)
     try:
-        dist.init_process_group(
-            backend_for(device), init_method=f"file://{store}", rank=rank,
-            world_size=world, timeout=datetime.timedelta(seconds=timeout_s))
-        results.put((rank, True, fn(make_mesh(world, device), *args)))
+        mesh = init_distributed(
+            num_processes=world, process_id=rank, device=device,
+            init_method=f"file://{store}",
+            timeout=datetime.timedelta(seconds=timeout_s))
+        assert (mesh.world, mesh.rank) == (world, rank)
+        results.put((rank, True, fn(mesh, *args)))
     except Exception:               # reported to the caller, which raises
         results.put((rank, False, traceback.format_exc()))
     finally:
@@ -63,8 +65,9 @@ def _rank_main(fn, rank, world, store, device, timeout_s, args, results):
 def run_local_ranks(fn, world: int, store_dir, *args, device="cpu",
                     timeout_s: float = 300.0):
     """[fn(mesh_0, *args), ..., fn(mesh_{W-1}, *args)], each rank its own
-    ``spawn`` process that joins a W-rank group through a file store in
-    ``store_dir`` (no TCP port) with one intra-op thread; ``fn`` is a
+    ``spawn`` process that joins a W-rank group through
+    ``init_distributed`` and a file store in ``store_dir`` (no TCP port)
+    with one intra-op thread; ``fn`` is a
     module-level function, its arguments and result picklable. A rank
     that raises makes the call raise with its traceback; ``timeout_s``
     bounds every collective and the whole call, and every process is
@@ -188,6 +191,7 @@ def _rank_jobs(mesh, weights, idx, tmp):
     # the group: the launcher's, found again by init_distributed
     again = init_distributed(device="cpu")
     out["group"] = dict(mesh=(again.world, again.rank, again.backend),
+                        same=again == mesh == make_mesh(D, "cpu"),
                         primary=is_primary(), slots=local_slot_indices(again),
                         count=device_count())
 
@@ -293,11 +297,12 @@ def ranks(setup, tmp_path_factory):
 
 
 def test_process_group_start(ranks):
-    """``init_distributed`` is idempotent (it returns the group the rank
-    joined); rank 0 alone is primary; each rank owns its own slot."""
+    """Each rank joined through ``init_distributed`` with its own rank;
+    a second call returns the group it joined, as ``make_mesh`` does;
+    rank 0 alone is primary; each rank owns its own slot."""
     for r, res in enumerate(ranks):
         g = res["group"]
-        assert g["mesh"] == (D, r, "gloo")
+        assert g["mesh"] == (D, r, "gloo") and g["same"]
         assert g["primary"] == (r == 0)
         assert g["slots"] == [r] and g["count"] == D
 
@@ -458,14 +463,79 @@ def test_halo_driver_resume_mid_run(ranks):
         assert res["losses"] == ranks[0]["halo_resume"]["losses"]
 
 
-def test_one_rank_group_and_its_super_step(monkeypatch):
+class _Started(Exception):
+    """Raised by the recorded ``init_process_group`` in place of a
+    rendezvous."""
+
+
+def test_multihost_and_torchrun_starts_reach_the_group(monkeypatch):
+    """The multi-process starts, with ``init_process_group`` recorded
+    in place of a rendezvous: --multihost's flags reach it through the
+    CLI and the driver as ``tcp://host:port`` with their rank and world
+    (gloo for --device cpu); torchrun's environment reaches it as
+    ``env://``, through the driver on the CPU and, for a rank on a card,
+    bound to cuda:LOCAL_RANK under NCCL."""
+    from sgs_gnn_tpu_torch.parallel import distributed
+    from sgs_gnn_tpu_torch.run import cli
+    calls, bound = [], []
+
+    def record(backend, **kw):
+        calls.append(dict(kw, backend=backend))
+        raise _Started
+
+    monkeypatch.setattr(dist, "is_initialized", lambda: False)
+    monkeypatch.setattr(dist, "init_process_group", record)
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK"):
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(_Started):
+        cli.main(["--dataset", "Karate", "--data_parallel", "on",
+                  "--multihost", "--coordinator_address", "10.0.0.1:29500",
+                  "--num_processes", "4", "--process_id", "3",
+                  "--device", "cpu"])
+    assert calls[-1] == dict(backend="gloo", rank=3, world_size=4,
+                             init_method="tcp://10.0.0.1:29500")
+    limit = datetime.timedelta(seconds=5)
+    with pytest.raises(_Started):
+        init_distributed("h:1", 2, 0, device="cpu", timeout=limit)
+    assert calls[-1] == dict(backend="gloo", rank=0, world_size=2,
+                             init_method="tcp://h:1", timeout=limit)
+
+    monkeypatch.setenv("RANK", "2")
+    monkeypatch.setenv("WORLD_SIZE", "4")
+    monkeypatch.setenv("LOCAL_RANK", "1")
+    with pytest.raises(_Started):
+        driver.run_experiment(Config(dataset="Karate", halo=True),
+                              log_fn=lambda *a: None, device="cpu")
+    assert calls[-1] == dict(backend="gloo", rank=2, world_size=4,
+                             init_method="env://")
+    monkeypatch.setattr(distributed, "resolve_device", torch.device)
+    monkeypatch.setattr(torch.cuda, "set_device", bound.append)
+    with pytest.raises(_Started):
+        init_distributed(device="cuda")
+    assert bound == [torch.device("cuda", 1)]
+    assert calls[-1] == dict(backend=backend_for("cuda"), rank=2,
+                             world_size=4, init_method="env://",
+                             device_id=torch.device("cuda", 1))
+    assert len(calls) == 4
+
+
+@pytest.fixture
+def one_rank_group(monkeypatch):
+    """The one-rank gloo group ``init_distributed`` starts in this process
+    without torchrun's environment, destroyed after the test."""
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK"):
+        monkeypatch.delenv(k, raising=False)
+    yield
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def test_one_rank_group_and_its_super_step(one_rank_group):
     """Without torchrun's environment or --coordinator_address, the
     group is one rank on the caller's device (idempotent), and a
     super-step of one rank (its all-reduces the identity) is the
     sequential step on the same partition and draws, bit for bit. A
     multi-process start without a coordinator raises."""
-    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK"):
-        monkeypatch.delenv(k, raising=False)
     with pytest.raises(ValueError, match="coordinator_address"):
         init_distributed("", 2, 1, device="cpu")
     mesh = init_distributed(device="cpu")
@@ -493,13 +563,11 @@ def test_one_rank_group_and_its_super_step(monkeypatch):
         assert torch.equal(a, b), k
 
 
-def test_unused_partition_is_kept_and_trains_nothing(monkeypatch):
+def test_unused_partition_is_kept_and_trains_nothing(one_rank_group):
     """Under data_parallel the driver keeps a partition the packer left
     empty (the super-steps need W partitions each): its batch builds (the
     degree prior of no edges is empty; the JAX function raises there) and
     its super-step is finite."""
-    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK"):
-        monkeypatch.delenv(k, raising=False)
     assert degree_prior(np.zeros(0, np.int32), np.zeros(0, np.int32),
                         5).shape == (0,)
     x, ei, y, tr, va, te, part = fixture_arrays(4)

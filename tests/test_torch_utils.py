@@ -216,12 +216,20 @@ def test_experiment_with_the_diagnostics_flags(tmp_path):
                 sparse_edge_mlp=True, epochs=3, convergence=0.0,
                 save_csv=False, results_dir=str(tmp_path), stats=True)
     flags = dict(gpu_profile=True, debug_checks=True, plot_curve=True)
-    # the halo route profiles the whole graph's segments (one rank here)
-    halo_lines = []
-    driver.run_experiment(Config(**dict(base, epochs=1), **flags, halo=True),
-                          log_fn=halo_lines.append, device="cpu")
-    assert sum(ln.startswith("[gpu-profile] epoch=0") for ln in halo_lines) \
-        == 1
+    # the multi-rank routes (one rank here) print the JAX drivers' keys:
+    # halo profiles the whole graph's segments
+    for route, keys in ((dict(halo=True), ["halo_step_time_ms"]),
+                        (dict(data_parallel="on"),
+                         ["super_step_time_ms", "super_steps"])):
+        route_lines = []
+        driver.run_experiment(Config(**dict(base, epochs=1), **flags,
+                                     **route),
+                              log_fn=route_lines.append, device="cpu")
+        (ln,) = [ln for ln in route_lines if ln.startswith("[gpu-profile]")]
+        fields = dict(kv.split("=") for kv in ln.split()[1:])
+        assert [k for k in fields if not k.endswith(("_ms", "_mb"))] == \
+            ["epoch"] + keys[1:] + ["mem"], ln
+        assert fields["epoch"] == "0" and float(fields[keys[0]]) > 0.0
     lines = []
     (res,) = driver.run_experiment(Config(**base, **flags),
                                    log_fn=lines.append, device="cpu")
