@@ -143,6 +143,19 @@ Phases, each printing one JSON line:
               random and full: learned must beat random by 0.2 and full by
               0.1 in final test F1; printed beside the JAX package's F1s
               in the same configuration (``QUALITY_JAX_REFERENCE``).
+  7b. baselines  NeuralSparseGCN and SparseGAT (baselines/) on the bench
+              partition at tools/baseline_compare.py's widths (f32, hidden
+              64, k = round(0.2 E / N), L0 weight 1e-3): one forward and
+              backward against the CPU port from equal parameters and one
+              fixed Gumbel draw (the CPU takes the card's keep mask, which
+              is held bit for bit to the CPU's top-k of the card's
+              scores), then Adam steps timed, launch-counted, with peak
+              memory and SparseGAT's kept-edge share: a ``baselines``
+              line each.
+  7c. embeddings  viz.extract_embeddings ('hidden' and 'logits') of GCN,
+              GIN and GAT backbones at nhid 256 in bf16 on the bench
+              partition against the CPU port in f32 (an ``embeddings``
+              line each, launches held to ``embedding_launches``).
   8. parallel  the multi-rank paths' process group on the card: one rank
               under NCCL (one card, and NCCL takes one rank per device),
               started by ``init_distributed``; its bucketed all-reduce must
@@ -160,8 +173,16 @@ Phases, each printing one JSON line:
               full-graph step, f32, equal parameters and draws; timed in
               turns, profiled) and an ``experiment`` line each for learned
               ``--data_parallel on`` (K1-K6), learned ``--halo`` (K1, K2,
-              K3, K5) and full ``--halo`` (K1, K2), 2 epochs each. Last,
-              so no earlier measurement runs beside the process group.
+              K3, K5) and full ``--halo`` (K1, K2), 2 epochs each. Right
+              after the super-step, in its group, ``tensor_parallel``:
+              shard_params_tp at tp = 1 (make_dp_tp_mesh(1, 1)) on the
+              bench partition without a tile index, one step against the
+              sequential step (sample frozen, no dropout, no gate; bf16
+              limits, a second sequential copy's gap beside them), a
+              launch-counted step (K1 16, K2 6, no head kernel), both
+              steps with bench.py's dropout timed in turns, profiled, with
+              their peaks. Last, so no earlier measurement runs beside
+              the process group.
 
 Then a ``kernels`` line (one entry per TPU kernel of the JAX package: route,
 the units it runs on, source, the TPU kernel it replaces, launches on each
@@ -514,20 +535,15 @@ def graph_ms(torch, fn, calls=20):
 
 
 def phase_device(torch):
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60)
-    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
-    card_line = smi.stdout.strip().splitlines()[0]
-    print(card_line, flush=True)
+    card = card_line()
+    print(card, flush=True)
     from sgs_gnn_tpu_torch.ops import _build
     t0 = time.perf_counter()
     lib = _build.build()
     build_s = time.perf_counter() - t0
     _build.library()
     emit("device", kind=torch.cuda.get_device_name(0),
-         count=torch.cuda.device_count(), nvidia_smi=card_line,
+         count=torch.cuda.device_count(), nvidia_smi=card,
          torch=torch.__version__, cuda=torch.version.cuda,
          build_s=build_s, library=lib.name)
 
@@ -1546,8 +1562,7 @@ def _grad_check(torch, arrays, g_card, name, cfg_kw, derived=False):
         restore()
 
     def rel_l2(a, b):
-        return {n: float((a[n] - b[n]).norm() / b[n].norm().clamp(min=1e-30))
-                for n in b}
+        return {n: _rel_l2(a[n], b[n]) for n in b}
 
     (loss_c, g_c), (loss_f, g_f) = out["card"], out["cpu"]
     rel = rel_l2(g_c, g_f)
@@ -2825,6 +2840,420 @@ def phase_quality(torch):
           f"quality: learned {f1['learned']} vs full {f1['full']}")
 
 
+# ------------------------------------------------------------ baselines
+# tools/baseline_compare.py's widths on the bench partition, f32 as there:
+# hidden 64, NeuralSparse's k = max(1, round(0.2 E / N)) edges kept per
+# node, SparseGAT's L0 term weighted 1e-3 / E. The card's forward and
+# backward are held to the port on the CPU (plain versions) from equal
+# parameters: NeuralSparse with one fixed Gumbel draw, SparseGAT with
+# deterministic gates. Per-node top-k is a discrete pick (an f32 rounding
+# of a score at a node's k-th can swap an edge, which no relative limit
+# bounds), so the CPU run takes the card's keep mask, and that mask is held
+# bit for bit to the CPU's top-k of the card's scores. Limits (relative
+# L2): the f32 layer tests' (tests/test_torch_cuda.py), values 1e-5 and
+# gradients 1e-4, ten times each for ~490 edges per node in another order
+# (atomics).
+BASELINE_HIDDEN = 64
+BASELINE_SHARE = 0.2
+BASELINE_L0 = 1e-3
+BASELINE_STEPS = 5
+BASELINE_LR = 0.01
+BASELINE_VAL_REL = 1e-4
+BASELINE_GRAD_REL = 1e-3
+BASELINES = ("neuralsparse", "sparsegat")
+
+
+def _rel_l2(a, b):
+    a, b = a.float().cpu(), b.float().cpu()
+    return float((a - b).norm() / b.norm().clamp(min=1e-30))
+
+
+def baseline_k():
+    """NeuralSparse's edges kept per node (tools/baseline_compare.py)."""
+    return max(1, int(round(BASELINE_SHARE * N_EDGES / N_NODES)))
+
+
+def _baseline_model(torch, name, device):
+    from sgs_gnn_tpu_torch.baselines import NeuralSparseGCN, SparseGAT
+    gen = torch.Generator().manual_seed(0)
+    if name == "neuralsparse":
+        return NeuralSparseGCN(FEAT, BASELINE_HIDDEN, CLASSES,
+                               k=baseline_k(), device=device, generator=gen)
+    return SparseGAT(FEAT, N_EDGES, BASELINE_HIDDEN, CLASSES, device=device,
+                     generator=gen)
+
+
+def _baseline_loss(name, model, t, generator, deterministic):
+    """(loss, logits) of one forward: masked CE on the train nodes (+ the
+    L0 term for SparseGAT), tools/baseline_compare.py's losses."""
+    from sgs_gnn_tpu_torch.train.losses import masked_cross_entropy
+    x, s, r, y, train = t
+    res = model(x, s, r, generator, deterministic=deterministic)
+    logits = res if name == "neuralsparse" else res[0]
+    loss = masked_cross_entropy(logits, y, train)
+    if name == "sparsegat":
+        loss = loss + BASELINE_L0 * res[1] / N_EDGES
+    return loss, logits
+
+
+def _baseline_parity(torch, name, host):
+    """One deterministic forward and backward on the card and on the CPU
+    (see above): the relative errors, the card's launches, NeuralSparse's
+    keep share."""
+    from sgs_gnn_tpu_torch.baselines import neuralsparse
+    from sgs_gnn_tpu_torch.ops._build import LAUNCHES
+    noise = torch.from_numpy(np.random.default_rng(7).gumbel(size=N_EDGES)
+                             .astype(np.float32))
+    saved = neuralsparse.gumbel, neuralsparse.per_node_topk_mask
+    card = {}
+
+    def card_topk(scores, receivers, n, k):
+        card["keep"] = saved[1](scores, receivers, n, k)
+        card["scores"] = scores.detach()
+        return card["keep"]
+
+    neuralsparse.gumbel = lambda gen, shape, device: noise.to(device)
+    out = {}
+    try:
+        for side, dev in (("card", DEVICE), ("cpu", "cpu")):
+            neuralsparse.per_node_topk_mask = (
+                card_topk if side == "card"
+                else lambda *a: card["keep"].cpu())
+            model = _baseline_model(torch, name, dev)
+            t = tuple(a.to(dev) for a in host)
+            torch.cuda.synchronize()
+            LAUNCHES.clear()
+            loss, logits = _baseline_loss(name, model, t, None, True)
+            names, params = zip(*model.named_parameters())
+            grads = torch.autograd.grad(loss, params)
+            torch.cuda.synchronize()
+            out[side] = (float(loss.detach()), logits.detach(),
+                         dict(zip(names, grads)), dict(LAUNCHES))
+    finally:
+        neuralsparse.gumbel, neuralsparse.per_node_topk_mask = saved
+    (loss_c, logit_c, grad_c, launches), (loss_f, logit_f, grad_f, _) = (
+        out["card"], out["cpu"])
+    res = dict(loss_card=loss_c, loss_cpu=loss_f,
+               logits_rel_l2=_rel_l2(logit_c, logit_f),
+               grad_rel_l2={n: _rel_l2(grad_c[n], g)
+                            for n, g in grad_f.items()},
+               launches=launches)
+    if name == "neuralsparse":
+        mask_cpu = saved[1](card["scores"].cpu(), host[2], N_NODES,
+                            baseline_k())
+        check(torch.equal(mask_cpu, card["keep"].cpu()),
+              "neuralsparse: the card's per-node top-k is not the CPU's "
+              "on the same scores")
+        res["keep_share"] = float(card["keep"].float().mean())
+    check(abs(loss_c - loss_f) <= BASELINE_VAL_REL * abs(loss_f)
+          and res["logits_rel_l2"] <= BASELINE_VAL_REL,
+          f"{name}: card vs cpu loss {loss_c} / {loss_f}, logits "
+          f"{res['logits_rel_l2']} (limit {BASELINE_VAL_REL})")
+    bad = {n: e for n, e in res["grad_rel_l2"].items()
+           if not e <= BASELINE_GRAD_REL}
+    check(not bad, f"{name}: gradients off the CPU's {bad} (limit "
+                   f"{BASELINE_GRAD_REL})")
+    return res
+
+
+def phase_baselines(torch, arrays):
+    """NeuralSparseGCN and SparseGAT on the bench partition (see above):
+    the parity step, then Adam steps on the card (one warm-up, one
+    launch-counted, BASELINE_STEPS timed; finite losses, peak memory) and
+    SparseGAT's kept-edge share (edge_weights > 0). A ``baselines`` line
+    each; returns {"baselines <name>": launches of one step}."""
+    from sgs_gnn_tpu_torch.baselines import SparseGAT
+    from sgs_gnn_tpu_torch.ops._build import LAUNCHES
+    x, edge_index, y, train = arrays
+    host = tuple(torch.from_numpy(a) for a in (
+        x, edge_index[0], edge_index[1], y, train))
+    paths = {}
+    for name in BASELINES:
+        parity = _baseline_parity(torch, name, host)
+        check(parity["launches"].get("scatter_add", 0) > 0
+              and parity["launches"].get("segment_sum_scalar", 0) > 0,
+              f"{name}: K1 and K2 must run, launched {parity['launches']}")
+        model = _baseline_model(torch, name, DEVICE)
+        opt = torch.optim.Adam(model.parameters(), lr=BASELINE_LR)
+        t = tuple(a.to(DEVICE) for a in host)
+        gen = torch.Generator(device=DEVICE).manual_seed(1)
+
+        def step():
+            loss, _ = _baseline_loss(name, model, t, gen, False)
+            opt.zero_grad(set_to_none=True)
+            loss.backward()
+            opt.step()
+            return loss.detach()
+
+        t0 = time.perf_counter()
+        losses = [step()]
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        LAUNCHES.clear()
+        losses.append(step())
+        torch.cuda.synchronize()
+        launches = dict(LAUNCHES)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(BASELINE_STEPS):
+            losses.append(step())
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) / BASELINE_STEPS * 1e3
+        losses = torch.stack(losses).cpu()
+        check(bool(torch.isfinite(losses).all()),
+              f"{name}: losses {losses.tolist()}")
+        check(launches.get("scatter_add", 0) > 0
+              and launches.get("segment_sum_scalar", 0) > 0,
+              f"{name}: step launches {launches}")
+        extra = {}
+        if name == "sparsegat":
+            w = SparseGAT.edge_weights(model.state_dict())
+            extra["kept_edge_share"] = float((w > 0).float().mean())
+        else:
+            extra["k"] = model.k
+        emit("baselines", model=name, nodes=N_NODES, edges=N_EDGES,
+             features=FEAT, hidden=BASELINE_HIDDEN, classes=CLASSES,
+             dtype="float32", lr=BASELINE_LR, l0_lambda=BASELINE_L0,
+             losses=losses.tolist(), first_step_ms=first_ms,
+             step_ms=step_ms, launches_per_step=launches,
+             max_memory_allocated=torch.cuda.max_memory_allocated(),
+             parity=parity, val_rel_limit=BASELINE_VAL_REL,
+             grad_rel_limit=BASELINE_GRAD_REL, **extra)
+        paths[f"baselines {name}"] = launches
+        del model, opt, t
+        torch.cuda.empty_cache()
+    return paths
+
+
+# ----------------------------------------------------------- embeddings
+# extract_embeddings at the train phase's width (nhid 256, bf16, one GAT
+# head; the GCN scorer, which the drawing does not run) on the bench
+# partition's whole edge list. K1 and K2 per first layer: GCN one
+# aggregation (K1) and its degrees (K2); GIN one sum (K1); GAT the message
+# sum (K1) and the softmax denominators of its (E+N,) logits (K2);
+# "logits" runs both layers, twice that. Held to the port on the CPU in
+# f32 within the train phase's bf16 limit, GRAD_REL_TOL (relative L2).
+EMBEDDING_ROWS = {"GCN": (1, 1), "GIN": (1, 0), "GAT": (1, 1)}
+
+
+def embedding_launches(gnn, layer):
+    k1, k2 = (n * (2 if layer == "logits" else 1)
+              for n in EMBEDDING_ROWS[gnn])
+    return {k: v for k, v in (("scatter_add", k1),
+                              ("segment_sum_scalar", k2)) if v}
+
+
+def phase_embeddings(torch, arrays):
+    """``extract_embeddings`` ('hidden' and 'logits') of GCN, GIN and GAT
+    backbones on the card against the CPU f32 port, same weights (see
+    above): shapes, finite values, relative L2 within GRAD_REL_TOL, the
+    launches of each call held to ``embedding_launches``. An
+    ``embeddings`` line each; returns {"embeddings": launches summed}."""
+    from sgs_gnn_tpu_torch import Graph, get_model
+    from sgs_gnn_tpu_torch.ops._build import LAUNCHES
+    from sgs_gnn_tpu_torch.viz import extract_embeddings
+    x, edge_index, y, train = arrays
+    graphs = {dev: Graph.build(x, edge_index, y, train, ~train, None,
+                               num_classes=CLASSES, device=dev)
+              for dev in (DEVICE, "cpu")}
+    total = {}
+    for gnn in EMBEDDING_ROWS:
+        out, ms, launches = {}, {}, {}
+        for side, dev, dtype in (("card", DEVICE, "bfloat16"),
+                                 ("cpu", "cpu", "float32")):
+            model = get_model(gnn, FEAT, NHID, CLASSES, DROP, "GCN",
+                              dtype=dtype, device=dev,
+                              generator=torch.Generator().manual_seed(0))
+            for layer in ("hidden", "logits"):
+                torch.cuda.synchronize()
+                LAUNCHES.clear()
+                t0 = time.perf_counter()
+                out[side, layer] = extract_embeddings(model, graphs[dev],
+                                                      layer)
+                if side == "card":
+                    ms[layer] = (time.perf_counter() - t0) * 1e3
+                    launches[layer] = dict(LAUNCHES)
+        err = {}
+        for layer, width in (("hidden", NHID), ("logits", CLASSES)):
+            card, cpu = (torch.from_numpy(out[side, layer])
+                         for side in ("card", "cpu"))
+            check(card.shape == (N_NODES, width)
+                  and bool(torch.isfinite(card).all()),
+                  f"embeddings {gnn} {layer}: shape {tuple(card.shape)}")
+            err[layer] = _rel_l2(card, cpu)
+            check(launches[layer] == embedding_launches(gnn, layer),
+                  f"embeddings {gnn} {layer}: launches {launches[layer]}, "
+                  f"expected {embedding_launches(gnn, layer)}")
+            for k, v in launches[layer].items():
+                total[k] = total.get(k, 0) + v
+        emit("embeddings", model=f"{gnn}+GCN", nodes=N_NODES, edges=N_EDGES,
+             nhid=NHID, dtype="bfloat16", call_ms=ms, launches=launches,
+             rel_l2_vs_cpu_f32=err, limit=GRAD_REL_TOL)
+        check(max(err.values()) <= GRAD_REL_TOL,
+              f"embeddings {gnn}: card bf16 vs cpu f32 {err} (limit "
+              f"{GRAD_REL_TOL})")
+    del graphs
+    torch.cuda.empty_cache()
+    return {"embeddings": total}
+
+
+# ------------------------------------------------------ tensor parallel
+# shard_params_tp on the one-rank NCCL group phase_parallel started
+# (make_dp_tp_mesh(1, 1): every shard whole, every collective an
+# identity), on the bench partition without a tile index (the sharded head
+# refuses K6), bench.py's hybrid_rescore flags. The sharded head runs
+# unfused: its detached pass over every edge and its pass on the q winners
+# gather both endpoints, whose backward is K1 on each side, in place of K3
+# (twice) and K5. So one step launches K1 4 (scorer encoder) + 2 (the
+# head's gathers) + 8 (learned and random backbones) + 2 (reg2) = 16 and
+# K2 6, and no head kernel. Parity: one step against the sequential step
+# from equal parameters, sample frozen (the two heads' probabilities
+# differ by bf16 roundings, which would move Gumbel top-k picks), dropout
+# and the conditional gate off (every parameter gets a gradient; the
+# fused head's hash32 mask and the unfused head's generator mask are other
+# draws); limits the grad_check's bf16 ones (1% on the loss, GRAD_REL_TOL
+# per gradient), since the unfused head rounds to bf16 where K3 and K5
+# keep f32 (ROADMAP §3), with a second sequential copy's gap beside them.
+TP_LAUNCHES = {"scatter_add": 16, "segment_sum_scalar": 6}
+TP_HEAD_KERNELS = ("score_head_sampled", "score_head_sampled_banded",
+                   "score_head_bwd", "score_head_tiles")
+TP_LOSS_RTOL = 1e-2
+TP_STEPS = 5
+
+
+def card_line():
+    """The card's name and power limit as nvidia-smi prints them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
+    return smi.stdout.strip().splitlines()[0]
+
+
+def phase_tensor_parallel(torch, arrays):
+    """Hidden-dimension TP at tp = 1 on the card (see above): the parity
+    step, a launch-counted TP step under no_host_sync held to TP_LAUNCHES
+    (no head kernel), the TP and sequential steps with bench.py's dropout
+    timed in turns, profiled, with their peaks. A ``tensor_parallel``
+    line; returns {"tensor_parallel_step": launches}."""
+    from sgs_gnn_tpu_torch import (Config, DualOptimizer, Graph,
+                                   make_train_step)
+    from sgs_gnn_tpu_torch.data import degree_prior
+    from sgs_gnn_tpu_torch.ops._build import LAUNCHES
+    from sgs_gnn_tpu_torch.parallel import (backend_for, make_dp_tp_mesh,
+                                            shard_params_tp)
+    from sgs_gnn_tpu_torch.train import pipelines
+    mesh = make_dp_tp_mesh(1, 1)
+    check((mesh.dp, mesh.tp, mesh.backend) == (1, 1, backend_for(DEVICE)),
+          f"tensor-parallel mesh {mesh}")
+    x, edge_index, y, train = arrays
+    g = Graph.build(x, edge_index, y, train, ~train, None, device=DEVICE,
+                    prob=degree_prior(edge_index[0], edge_index[1], N_NODES),
+                    num_classes=CLASSES, sort_by_receiver=True,
+                    tile_index=False)
+    check(g.tile_t == 0 and g.receiver_band > 0, "graph layout")
+
+    def models(cfg, n, sharded):
+        out = []
+        for i in range(n):
+            m, opt = _fresh_model(torch, cfg, FEAT, CLASSES)
+            if sharded[i]:
+                shard_params_tp(m, mesh)
+                opt = DualOptimizer.create(m, cfg.GNN, cfg.lr,
+                                           cfg.weight_decay)
+            out.append((m, opt, make_train_step(cfg, m, opt, Q, 40)))
+        return out
+
+    cfg_p = Config(**dict(bench_config(pipeline="hybrid", drop_rate=0.0),
+                          conditional=False))
+    (m_seq, o_seq, seq), (_, o_ref, ref), (m_tp, o_tp, tp) = models(
+        cfg_p, 3, (False, False, True))
+    rng = np.random.default_rng(3)
+    idx = torch.from_numpy(np.sort(rng.choice(
+        np.flatnonzero(g.edge_mask.cpu().numpy()), Q, replace=False))
+        .astype(np.int32))
+    rand_idx = torch.from_numpy(rng.choice(N_EDGES, Q, replace=False)
+                                .astype(np.int32))
+    gen = torch.Generator(device=DEVICE)
+    restore = _frozen_sampling(torch, pipelines, idx, rand_idx)
+    try:
+        with _captured_grads((o_seq, o_ref, o_tp), "step_learned") as grads:
+            losses = [float(step(g, 0, gen.manual_seed(5)).loss)
+                      for step in (seq, ref, tp)]
+    finally:
+        restore()
+    grad_gap = _grad_gaps(o_seq.names, grads[2], grads[0])
+    grad_floor = _grad_gaps(o_seq.names, grads[1], grads[0])
+    loss_rel = abs(losses[2] - losses[0]) / abs(losses[0])
+    del grads, m_seq, o_seq, seq, o_ref, ref, m_tp, o_tp, tp
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg = Config(**bench_config(pipeline="hybrid"))
+    check(cfg.drop_rate == DROP, f"drop_rate {cfg.drop_rate}")
+    (m_seq, _, seq), (m_tp, _, tp) = models(cfg, 2, (False, True))
+    seq(g, 0, gen.manual_seed(6))
+    tp(g, 0, gen.manual_seed(6))
+    torch.cuda.synchronize()
+    LAUNCHES.clear()
+    seq(g, 1, gen.manual_seed(7))
+    torch.cuda.synchronize()
+    seq_launches = dict(LAUNCHES)
+    LAUNCHES.clear()
+    with no_host_sync(torch):
+        tp(g, 1, gen.manual_seed(7))
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    peaks = {}
+    for name, step in (("sequential", seq), ("tensor_parallel", tp)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step(g, 2, gen.manual_seed(8))
+        torch.cuda.synchronize()
+        peaks[name] = torch.cuda.max_memory_allocated()
+    times = _turns(torch, {
+        "sequential": lambda i: seq(g, 3 + i, gen.manual_seed(100 + i)),
+        "tensor_parallel": lambda i: tp(g, 3 + i, gen.manual_seed(100 + i))},
+        TP_STEPS)
+    prof = {"sequential": profile_breakdown(
+                torch, lambda: seq(g, 20, gen.manual_seed(200))),
+            "tensor_parallel": profile_breakdown(
+                torch, lambda: tp(g, 20, gen.manual_seed(200)))}
+    emit("tensor_parallel", pipeline="hybrid_rescore", dp=mesh.dp,
+         tp=mesh.tp, backend=mesh.backend, nvidia_smi=card_line(),
+         config=bench_config(pipeline="hybrid"), tile_index=False,
+         nodes=N_NODES, edges=N_EDGES, features=FEAT, nhid=NHID, q=Q,
+         parity=dict(losses=dict(zip(("sequential", "sequential_copy",
+                                      "tensor_parallel"), losses)),
+                     loss_rel=loss_rel, loss_rtol=TP_LOSS_RTOL,
+                     grad_rel_l2=grad_gap,
+                     grad_rel_l2_max=max(grad_gap.values()),
+                     grad_rel_l2_copy_max=max(grad_floor.values()),
+                     grad_rel_limit=GRAD_REL_TOL,
+                     note="sample frozen, dropout and gate off"),
+         launches_per_step=launches, sequential_launches=seq_launches,
+         step_ms=times, max_memory_allocated=peaks,
+         device_busy_ms={k: v["device_busy_ms"] for k, v in prof.items()},
+         idle_share={k: v["idle_share"] for k, v in prof.items()})
+    for k, v in prof.items():
+        emit("profile", call=f"{k} step (no tile index)", **v)
+    check(not any(k in launches for k in TP_HEAD_KERNELS),
+          f"tensor-parallel step launched a fused head kernel: {launches}")
+    check(launches == TP_LAUNCHES, f"tensor-parallel step launches "
+                                   f"{launches}, expected {TP_LAUNCHES}")
+    check(loss_rel <= TP_LOSS_RTOL, f"tensor parallel at tp 1: losses "
+                                    f"{losses} (limit {TP_LOSS_RTOL})")
+    bad = {n: e for n, e in grad_gap.items() if not e <= GRAD_REL_TOL}
+    check(not bad, f"tensor parallel at tp 1: gradients {bad} (limit "
+                   f"{GRAD_REL_TOL}; a second sequential copy "
+                   f"{max(grad_floor.values())})")
+    del m_seq, seq, m_tp, tp, g
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"tensor_parallel_step": launches}
+
+
 # one entry per TPU kernel of the JAX package (each function that reaches
 # pl.pallas_call): the port's kernel name, its source and what it replaces
 KERNELS = {
@@ -2888,12 +3317,15 @@ def main():
     torch.cuda.empty_cache()
     paths.update(phase_experiment(torch))
     phase_quality(torch)
+    paths.update(phase_baselines(torch, arrays))
+    paths.update(phase_embeddings(torch, arrays))
     # last, so that no earlier measurement runs beside the process group
     # or what its phases leave on the card
     g = train_graph(torch, arrays)
     paths.update(phase_parallel(torch, g))
     del g
     torch.cuda.empty_cache()
+    paths.update(phase_tensor_parallel(torch, arrays))
     with tempfile.TemporaryDirectory() as results_dir:
         paths.update(phase_parallel_experiment(torch, experiment_dataset(),
                                                results_dir))

@@ -12,7 +12,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from .layers import ChebConv, GATConv, GCNConv, GINConv
+from .layers import ChebConv, GATConv, GCNConv, GINConv, col_block
 from .scorers import get_edge_mlp
 from ..core.device import resolve_device, torch_dtype
 from ..ops.dropout import dropout
@@ -25,7 +25,10 @@ class _Backbone(nn.Module):
     two layers under their JAX names and returns them from ``layers``.
     The edge weights go to both layers; GIN and GAT ignore them, as PyG's
     do. The halo hooks (``exchange``, ``edge_mask``; ``models/layers.py``)
-    pass through to both layers and to the scorer."""
+    pass through to both layers and to the scorer. Under tensor
+    parallelism the dropout between the layers masks this rank's block of
+    the whole mask where the first layer's output is column-sharded (GCN,
+    Cheb); GIN's layers and GAT's give whole rows."""
 
     def __init__(self, in_channels: int, hidden_dim: int,
                  dropout_prob: float = 0.3, edge_mlp_type: str = "MLP",
@@ -46,7 +49,7 @@ class _Backbone(nn.Module):
         h = torch.relu(layer1(x, senders, receivers, edge_weight, exchange,
                               edge_mask))
         h = dropout(h, self.dropout_prob, generator,
-                    training=not deterministic)
+                    training=not deterministic, shard=col_block(layer1))
         return layer2(h, senders, receivers, edge_weight, exchange,
                       edge_mask)
 

@@ -28,6 +28,18 @@ Every layer also takes the JAX layers' two SPMD hooks, so the halo route
 
 With both None the layers compute as before.
 
+Under tensor parallelism (``parallel.shard_params_tp``) a sharded
+``nn.Linear`` carries a ``tp`` attribute that ``linear`` reads: a
+column-sharded one takes its input through the model group's (a) point
+and returns its block of the output features, a row-sharded one sums its
+partial product over the group (b) before its bias. The layers' code is
+otherwise the same: the aggregations between a column layer and its row
+pair work column by column (K1 at F = H/tp), degrees per node (K2); a
+column-sharded GCNConv takes its edge weights through (a) as well, since
+each block's aggregation and degree scaling adds to their gradient.
+``col_shard`` and ``col_block`` name the layers whose output is a column
+block.
+
 Initialisers follow flax: ``glorot_uniform`` where the JAX layer names it,
 otherwise ``nn.Dense``'s ``lecun_normal`` with a zero bias.
 """
@@ -87,9 +99,32 @@ def glorot_dense(in_features: int, features: int,
 
 def linear(x, lin: nn.Linear, dtype):
     """``lin`` applied in ``dtype`` (input, weight and bias cast), as flax
-    ``nn.Dense(dtype=...)`` computes it."""
+    ``nn.Dense(dtype=...)`` computes it. A row-sharded ``lin`` (module
+    docstring) sums its partial products in f32, casts the sum to
+    ``dtype`` and adds the bias after."""
     bias = None if lin.bias is None else lin.bias.to(dtype)
+    tp = getattr(lin, "tp", None)
+    if tp is not None and not tp.col:
+        out = tp.reduce(nn.functional.linear(x.to(dtype),
+                                             lin.weight.to(dtype)), dtype)
+        return out if bias is None else out + bias
+    if tp is not None:
+        x = tp.copy_in(x)
     return nn.functional.linear(x.to(dtype), lin.weight.to(dtype), bias)
+
+
+def col_shard(module: nn.Module):
+    """The ``parallel.tensor_parallel.Shard`` of a module whose output
+    features are this rank's column block, else None."""
+    tp = getattr(module, "tp", None)
+    return tp if tp is not None and tp.col else None
+
+
+def col_block(module: nn.Module):
+    """(rank, size) of ``col_shard(module)`` (``ops.dropout``'s
+    ``shard``), else None."""
+    cs = col_shard(module)
+    return None if cs is None else cs.cols
 
 
 class GCNConv(nn.Module):
@@ -115,6 +150,11 @@ class GCNConv(nn.Module):
                 exchange=None, edge_mask=None):
         n = x.shape[0]
         dense = isinstance(senders, DenseEdges)
+        cs = col_shard(self)
+        if cs is not None and edge_weight is not None:
+            # the weights scale every column block: their gradient is the
+            # sum of the blocks' (collective (a))
+            edge_weight = cs.copy_in(edge_weight)
         if edge_mask is not None:
             mf = edge_mask.float()
             edge_weight = mf if edge_weight is None \

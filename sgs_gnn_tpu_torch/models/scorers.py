@@ -29,6 +29,17 @@ index it, and the kernels are the sequential route's (the JAX scorer runs
 its unfused head on ``exchange(h)[senders]`` and ``h[receivers]``).
 The encoders pass ``exchange`` and ``edge_mask`` to their layers.
 
+Under tensor parallelism (``parallel/tensor_parallel.py``) a sharded head
+(fc1 column-sharded, fc2 row-sharded) always takes the unfused route: the
+fused kernels apply the sigmoid inside the kernel, and fc2's partial
+logits must be summed over the model group before b2 and the sigmoid. h
+enters it through the group's (a) point (its gradient all-reduced), fc1
+gives this rank's block of hidden units, the dropout mask is that block of
+the whole (E, K) mask, and fc2's partial logit is reduced in f32. The MLP
+and GraphSAGE encoders, whose column-sharded output has no row pair,
+all-gather it before the head. ``score_tiles`` and the fused head raise on
+a sharded head: the caller builds the graph without a tile index.
+
 ``score_tiles`` goes through ``ops.score_head_tiles`` (K6, detached). On
 the CPU the ops run their plain versions. fc1 is stored as one
 ``nn.Linear(2F, K)`` (the JAX tree's concat kernel, transposed) and split
@@ -47,7 +58,8 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from .layers import GCNConv, SAGEConv, dense, linear
+from .layers import (GCNConv, SAGEConv, col_block, col_shard, dense,
+                     linear)
 from ..ops.dropout import apply_keep, dropout, dropout_keep
 from ..ops.edge_gather import gather_rows
 from ..ops.score_sampled import score_head_sampled
@@ -63,8 +75,21 @@ class _ScoreHead(nn.Module):
         self.fc1 = dense(2 * hidden_dim, hidden_dim, True, generator)
         self.fc2 = dense(hidden_dim, 1, True, generator)
 
+    def sharded(self) -> bool:
+        return col_shard(self.fc1) is not None
+
+    def _fused_only_unsharded(self, what):
+        if self.sharded():
+            raise ValueError(
+                f"{what}: the head is tensor-parallel; the fused kernels "
+                "apply the sigmoid inside the kernel, before fc2's partial "
+                "logits could be summed over the model group. Score with "
+                "score_from (the unfused route) and build the graph "
+                "without a tile index")
+
     def forward(self, h, senders, receivers, deterministic: bool = True,
                 sorted_side: str = "", generator=None):
+        self._fused_only_unsharded("the fused score head")
         rate = 0.0 if deterministic else self.dropout_prob
         seed = draw_seed(generator, h.device) if rate > 0.0 else 0
         return score_head_sampled(h, self.fc1.weight.t(), self.fc1.bias,
@@ -75,17 +100,20 @@ class _ScoreHead(nn.Module):
     def unfused_keep(self, n_edges: int, device, deterministic: bool = True,
                      generator=None):
         """The layer dropout's kept units of ``unfused`` over ``n_edges``
-        edges, drawn from ``generator`` (None: no dropout)."""
+        edges, drawn from ``generator`` (None: no dropout); a sharded
+        head's are its block of the whole mask."""
         if deterministic or self.dropout_prob == 0.0:
             return None
         return dropout_keep((n_edges, self.fc1.weight.shape[0]),
-                            self.dropout_prob, generator, device)
+                            self.dropout_prob, generator, device,
+                            col_block(self.fc1))
 
     def unfused(self, hu, hv, keep=None):
         """The JAX ``_ScoreHead.__call__`` on gathered endpoint rows, in
         their dtype: fc1 as W1a (product half) and W1b (difference half),
         ReLU, layer dropout on the units ``keep`` holds (``unfused_keep``),
-        fc2, sigmoid in f32."""
+        fc2 (reduced over the model group when sharded), sigmoid in
+        f32."""
         f = hu.shape[1]
         w1 = self.fc1.weight.to(hu.dtype)
         z = (nn.functional.linear(hu * hv, w1[:, :f])
@@ -94,12 +122,12 @@ class _ScoreHead(nn.Module):
         z = torch.relu(z)
         if keep is not None:
             z = apply_keep(z, keep, self.dropout_prob)
-        logit = nn.functional.linear(z, self.fc2.weight.to(z.dtype),
-                                     self.fc2.bias.to(z.dtype))
+        logit = linear(z, self.fc2, z.dtype)
         return torch.sigmoid(logit.float()).squeeze(-1)
 
     def tiles(self, h, tile_ls, tile_lr, tile_su, tile_rv, t: int, bk: int,
               deterministic: bool = True, seed=0):
+        self._fused_only_unsharded("score_tiles")
         rate = 0.0 if deterministic else self.dropout_prob
         return score_head_tiles(h, self.fc1.weight.t(), self.fc1.bias,
                                 self.fc2.weight.t(), self.fc2.bias, tile_ls,
@@ -139,14 +167,21 @@ class _EdgeScorer(nn.Module):
         route is chosen by ``receiver_band`` (module docstring).
         ``use_remat`` applies to the unfused route only: the fused head's
         backward recomputes its forward anyway, as in JAX. With
-        ``exchange`` the fused head runs on ``exchange(h)``."""
+        ``exchange`` the fused head runs on ``exchange(h)``. A sharded head
+        takes the unfused route (module docstring)."""
         h = h.to(self.dtype)
+        sharded = self.head.sharded()
         if exchange is not None:
+            if sharded:
+                raise NotImplementedError(
+                    "the halo exchange with a tensor-parallel head")
             return self.head(exchange(h), senders, receivers, deterministic,
                              "", generator)
-        if receiver_band == 0:
+        if receiver_band == 0 and not sharded:
             return self.head(h, senders, receivers, deterministic,
                              sorted_side, generator)
+        if sharded:
+            h = self.head.fc1.tp.copy_in(h)
 
         # the dropout mask is drawn before the head, so the checkpoint's
         # recompute reuses it and no generator is rewound (which a CUDA
@@ -181,6 +216,16 @@ class _EdgeScorer(nn.Module):
                                score_sorted_side, generator)
 
 
+def _whole(layer, h, rate, generator, deterministic):
+    """The encoder's dropout on ``layer``'s output ``h``; a column-sharded
+    one masks this rank's block of the whole mask, then all-gathers the
+    features (collective (c)), since no row layer follows."""
+    h = dropout(h, rate, generator, training=not deterministic,
+                shard=col_block(layer))
+    cs = col_shard(layer)
+    return h if cs is None else cs.gather(h)
+
+
 class EdgeProbMLP(_EdgeScorer):
     """MLP scorer (``edge_mlp_type='MLP'``): a per-node projection,
     ReLU and dropout, no propagation; the head gathers the projected rows
@@ -197,9 +242,8 @@ class EdgeProbMLP(_EdgeScorer):
                edge_mask=None):
         # no propagation: the halo hooks are inert
         h = torch.relu(linear(x, self.fcdim, self.dtype))
-        h = dropout(h, self.dropout_prob, generator,
-                    training=not deterministic)
-        return h.to(self.dtype)
+        return _whole(self.fcdim, h, self.dropout_prob, generator,
+                      deterministic).to(self.dtype)
 
 
 class EdgeProbSAGE(_EdgeScorer):
@@ -218,9 +262,8 @@ class EdgeProbSAGE(_EdgeScorer):
                edge_mask=None):
         h = self.gcn1(x, prop_senders, prop_receivers, None, exchange,
                       edge_mask)
-        h = dropout(torch.relu(h), self.dropout_prob, generator,
-                    training=not deterministic)
-        return h.to(self.dtype)
+        return _whole(self.gcn1, torch.relu(h), self.dropout_prob,
+                      generator, deterministic).to(self.dtype)
 
 
 class EdgeProbGCN(_EdgeScorer):
@@ -241,7 +284,7 @@ class EdgeProbGCN(_EdgeScorer):
         h = self.gcn1(x, prop_senders, prop_receivers, None, exchange,
                       edge_mask)
         h = dropout(torch.relu(h), self.dropout_prob, generator,
-                    training=not deterministic)
+                    training=not deterministic, shard=col_block(self.gcn1))
         h = torch.relu(self.gcn2(h, prop_senders, prop_receivers, None,
                                  exchange, edge_mask))
         return h.to(self.dtype)

@@ -20,7 +20,10 @@ device, read by the kernel, so neither drawing it nor making it from an
 int waits for the card.
 
 **Layer dropout** (``dropout``): flax ``nn.Dropout``'s formula, with the
-keep draws from an explicit ``torch.Generator``.
+keep draws from an explicit ``torch.Generator``. For an activation whose
+features are split over a tensor-parallel group (``shard=(rank, size)``)
+the mask of the whole activation is drawn and this rank's block of
+columns kept, so the sharded and the unsharded draws are equal.
 """
 from __future__ import annotations
 
@@ -103,11 +106,19 @@ def keep_mask(drop: HeadDropout, e0: int, n_edges: int, hidden: int):
     return hash32_plain(drop.seed, e[:, None] * hidden + k) >= drop.thresh
 
 
-def dropout_keep(shape, rate: float, generator, device):
+def dropout_keep(shape, rate: float, generator, device, shard=None):
     """The kept entries of a ``shape`` dropout: one uniform draw each from
-    ``generator``, kept below 1 - rate."""
-    u = torch.rand(shape, generator=generator, device=device)
-    return u < 1.0 - rate
+    ``generator``, kept below 1 - rate. With ``shard=(rank, size)`` the
+    last dim is block ``rank`` of ``size``: the whole mask is drawn and
+    that block returned."""
+    if shard is None:
+        return torch.rand(shape, generator=generator, device=device) \
+            < 1.0 - rate
+    rank, size = shard
+    f = shape[-1]
+    keep = dropout_keep(tuple(shape[:-1]) + (f * size,), rate, generator,
+                        device)
+    return keep[..., rank * f:(rank + 1) * f]
 
 
 def apply_keep(x, keep, rate: float):
@@ -115,10 +126,11 @@ def apply_keep(x, keep, rate: float):
     return torch.where(keep, x / (1.0 - rate), 0.0)
 
 
-def dropout(x, rate: float, generator, training: bool = True):
+def dropout(x, rate: float, generator, training: bool = True, shard=None):
     """flax ``nn.Dropout``: keep with probability 1 - rate, scale kept
-    entries by 1 / (1 - rate); the keep draws come from ``generator``."""
+    entries by 1 / (1 - rate); the keep draws come from ``generator``
+    (``shard``: ``dropout_keep``'s)."""
     if rate == 0.0 or not training:
         return x
-    return apply_keep(x, dropout_keep(x.shape, rate, generator, x.device),
-                      rate)
+    return apply_keep(x, dropout_keep(x.shape, rate, generator, x.device,
+                                      shard), rate)

@@ -15,6 +15,13 @@ rank (``mesh.rank_seed``), the counterpart of JAX's ``fold_in(key,
 axis_index)``. The gradients, the loss and both F1s travel in one
 bucketed all-reduce (SUM, then divided by W), the gate in a second (MAX).
 A rank's partitions are its own; nothing is stacked or gathered.
+
+On a two-axis mesh (``mesh.make_dp_tp_mesh``, JAX's data x model
+parallelism, tensor_parallel.py:26-28) the partitions are spread over the
+``data`` axis: the reductions run over ``mesh.data_group`` (the dp ranks
+whose shards have the same shapes), the means divide by dp, and the draws
+are seeded by ``mesh.data_rank``, so the tp ranks of one partition draw
+the same samples. With tp = 1 these are the whole group and the rank.
 """
 from __future__ import annotations
 
@@ -37,10 +44,11 @@ def all_reduce_mean(tensors: Sequence[torch.Tensor], mesh: Mesh
                     ) -> List[torch.Tensor]:
     """The mean over the ranks of each tensor, by one SUM all-reduce of
     their f32 concatenation (one bucket, not one collective per tensor),
-    divided by W; each result in its tensor's shape, f32."""
+    divided by dp (the ranks of ``mesh.data_group``); each result in its
+    tensor's shape, f32."""
     flat = torch.cat([t.detach().reshape(-1).float() for t in tensors])
-    dist.all_reduce(flat)
-    flat = flat / mesh.world
+    dist.all_reduce(flat, group=mesh.data_group)
+    flat = flat / mesh.dp
     out, off = [], 0
     for t in tensors:
         out.append(flat[off:off + t.numel()].reshape(t.shape))
@@ -48,11 +56,11 @@ def all_reduce_mean(tensors: Sequence[torch.Tensor], mesh: Mesh
     return out
 
 
-def all_reduce_any(flag: torch.Tensor) -> torch.Tensor:
-    """True on every rank when ``flag`` (a bool scalar) holds on any: a MAX
-    all-reduce."""
+def all_reduce_any(flag: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """True on every rank when ``flag`` (a bool scalar) holds on any rank
+    of ``mesh.data_group``: a MAX all-reduce."""
     v = flag.to(torch.int32).reshape(1).clone()
-    dist.all_reduce(v, op=dist.ReduceOp.MAX)
+    dist.all_reduce(v, op=dist.ReduceOp.MAX, group=mesh.data_group)
     return v[0] > 0
 
 
@@ -74,7 +82,7 @@ def make_parallel_train_step(cfg: Config, model, opt: DualOptimizer, q: int,
 
         def baseline_step(g: Graph, epoch: int, step_seed: int,
                           generator: torch.Generator) -> StepMetrics:
-            generator.manual_seed(rank_seed(step_seed, mesh.rank))
+            generator.manual_seed(rank_seed(step_seed, mesh.data_rank))
             loss = loss_fn(g, generator)
             *grads, loss = all_reduce_mean(
                 param_grads(loss, params) + [loss], mesh)
@@ -87,14 +95,14 @@ def make_parallel_train_step(cfg: Config, model, opt: DualOptimizer, q: int,
 
     def step(g: Graph, epoch: int, step_seed: int,
              generator: torch.Generator) -> StepMetrics:
-        generator.manual_seed(rank_seed(step_seed, mesh.rank))
+        generator.manual_seed(rank_seed(step_seed, mesh.data_rank))
         total, (gate, lf1, rf1) = loss_fn(g, generator)
         gate_f = gate.float()
         grads = [gr * gate_f if e else gr
                  for gr, e in zip(param_grads(total, params), edge)]
         *grads, loss, lf1, rf1 = all_reduce_mean(grads + [total, lf1, rf1],
                                                  mesh)
-        any_gate = all_reduce_any(gate)
+        any_gate = all_reduce_any(gate, mesh)
         opt.step_learned(grads, any_gate)
         return StepMetrics(loss, temperature(epoch), any_gate.float(), lf1,
                            rf1)
@@ -111,10 +119,10 @@ def make_parallel_eval_step(cfg: Config, model, q: int, mesh: Mesh):
 
     def eval_step(g: Graph, stream_seed: int, generator: torch.Generator
                   ) -> Dict[str, torch.Tensor]:
-        generator.manual_seed(rank_seed(stream_seed, mesh.rank))
+        generator.manual_seed(rank_seed(stream_seed, mesh.data_rank))
         res = inner(g, generator)
         vals = torch.stack([res[k].float() for k in KEYS])
-        dist.all_reduce(vals)
+        dist.all_reduce(vals, group=mesh.data_group)
         return dict(zip(KEYS, vals.unbind()))
 
     return eval_step

@@ -400,7 +400,13 @@ def make_scan_epoch_step(cfg: Config, model, opt: DualOptimizer, q: int,
     with ``seed_of(epoch * n_batches + bi + 1)``, the per-batch loop's
     schedule. So the same order, the same per-batch draws and one update
     per batch as the loop (the JAX docstring): a graphed epoch equals the
-    eager one up to the order of f32 atomics. Runs on a CUDA device (``classes`` raises on another)."""
+    eager one up to the order of f32 atomics. Runs on a CUDA device (``classes`` raises on another).
+    A tensor-parallel model (``parallel.shard_params_tp``) trains step by
+    step, as JAX's does: this raises on one."""
+    from ..parallel.tensor_parallel import is_sharded
+    if is_sharded(model):
+        raise ValueError("make_scan_epoch_step: a tensor-parallel model "
+                         "trains step by step (make_train_step)")
     return ScanEpochStep(
         _step_cases(cfg, model, opt, q),
         lambda epoch: temperature_at(epoch, max_epoch, cfg.t_init, cfg.t_min),

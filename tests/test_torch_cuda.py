@@ -1295,6 +1295,145 @@ def test_segment_profiler_reads_memory_on_card(card):
     assert prof.peak_mb >= peak
 
 
+# ---------------------------------- the baselines; tensor parallel at tp 1
+#
+# f32 on both sides: the card sums with f32 atomics (K1, K2) in another
+# order than the CPU's plain versions, so values agree to 1e-5 and
+# gradients to 1e-4 (relative L2), as the f32 layer tests above. The
+# baselines stay in f32 here because NeuralSparse's per-node top-k is a
+# discrete pick: a bf16 rounding of a score near a node's k-th can swap an
+# edge, which no relative limit bounds.
+
+
+def _baseline_graph(rng, n=600, e=20_000, f_in=64):
+    x = torch.from_numpy(rng.normal(size=(n, f_in)).astype(np.float32))
+    s = torch.from_numpy(rng.integers(0, n, e).astype(np.int32))
+    r = torch.from_numpy(rng.integers(0, n, e).astype(np.int32))
+    y = torch.from_numpy(rng.integers(0, 5, n).astype(np.int64))
+    return x, s, r, y
+
+
+@pytest.mark.parametrize("name", ["neuralsparse", "sparsegat"])
+def test_baseline_step_on_card_matches_cpu(card, name, monkeypatch):
+    """One forward and backward of NeuralSparseGCN (its Gumbel noise fixed)
+    and of SparseGAT (deterministic gates) on the card, against the CPU
+    from the same weights: K1 and K2 launched on the card, none on the
+    CPU; outputs and every gradient within the f32 limits above."""
+    from sgs_gnn_tpu_torch.baselines import (NeuralSparseGCN, SparseGAT,
+                                             neuralsparse)
+    rng = np.random.default_rng(11)
+    x, s, r, y = _baseline_graph(rng)
+    noise = torch.from_numpy(rng.gumbel(size=s.shape[0]).astype(np.float32))
+    monkeypatch.setattr(neuralsparse, "gumbel",
+                        lambda gen, shape, device: noise.to(device))
+    out, grads, launched = {}, {}, {}
+    for side, dev in (("card", card), ("cpu", "cpu")):
+        gen = torch.Generator().manual_seed(0)
+        model = (NeuralSparseGCN(64, 32, 5, k=8, device=dev, generator=gen)
+                 if name == "neuralsparse" else
+                 SparseGAT(64, s.shape[0], 32, 5, device=dev, generator=gen))
+        LAUNCHES.clear()
+        res = model(x.to(dev), s.to(dev), r.to(dev), None,
+                    deterministic=True)
+        logits = res if name == "neuralsparse" else res[0]
+        loss = torch.nn.functional.cross_entropy(logits, y.to(dev))
+        if name == "sparsegat":
+            loss = loss + 1e-3 * res[1] / s.shape[0]
+        names, params = zip(*model.named_parameters())
+        g = torch.autograd.grad(loss, params)
+        if dev != "cpu":
+            torch.cuda.synchronize()
+        out[side] = logits.detach().cpu()
+        grads[side] = {n: gr.cpu() for n, gr in zip(names, g)}
+        launched[side] = dict(LAUNCHES)
+    assert launched["card"].get("scatter_add", 0) > 0, launched
+    assert launched["card"].get("segment_sum_scalar", 0) > 0, launched
+    assert not launched["cpu"]
+    assert _rel_l2(out["card"], out["cpu"]) <= 1e-5
+    for n, want in grads["cpu"].items():
+        assert _rel_l2(grads["card"][n], want) <= 1e-4, n
+
+
+def test_tp1_step_on_card_matches_sequential(card, monkeypatch):
+    """``shard_params_tp`` on a one-rank NCCL group (``make_dp_tp_mesh(1,
+    1)``: every shard whole, every collective an identity) against the
+    unsharded model, f32, hybrid_rescore without a tile index, dropout 0,
+    the sample frozen (the sharded head runs unfused, the unsharded one K3
+    and K5, so their probabilities differ by f32 rounding, which could
+    swap a sampled edge at the top-k boundary): the learned loss and every
+    gradient within the f32 limits; then one ``make_train_step`` of each,
+    the sharded one launching K1 and K2 and no head kernel (K3, K5,
+    K6)."""
+    import torch.distributed as dist
+    from sgs_gnn_tpu_torch import (Config, DualOptimizer, Graph, get_model,
+                                   make_train_step)
+    from sgs_gnn_tpu_torch.parallel import (init_distributed,
+                                            make_dp_tp_mesh,
+                                            shard_params_tp)
+    from sgs_gnn_tpu_torch.train import pipelines
+    from sgs_gnn_tpu_torch.train.pipelines import make_learned_loss
+    rng = np.random.default_rng(5)
+    x, s, r, y = _baseline_graph(rng, n=800, e=40_000, f_in=48)
+    idx = torch.from_numpy(np.sort(rng.choice(40_000, 8000, replace=False))
+                           .astype(np.int32)).to(card)
+    rand_idx = torch.from_numpy(rng.choice(40_000, 8000, replace=False)
+                                .astype(np.int32)).to(card)
+
+    def frozen(generator, probs, prior, q, beta, istest=False,
+               edge_mask=None):
+        return idx, probs[idx.long()]
+
+    monkeypatch.setattr(pipelines, "sample_edges", frozen)
+    monkeypatch.setattr(pipelines, "sample_prior_edges",
+                        lambda *a, **k: rand_idx)
+    train = rng.random(800) < 0.5
+    g = Graph.build(x.numpy(), np.stack([s.numpy(), r.numpy()]), y.numpy(),
+                    train, ~train, None, num_classes=5,
+                    sort_by_receiver=True, device=card)
+    cfg = Config(mode="learned", pipeline="hybrid", conditional=True,
+                 sparse_edge_mlp=True, reg1=True, reg2=True, nhid=64,
+                 drop_rate=0.0)
+    started = not dist.is_initialized()
+    if started:
+        init_distributed(device=card)
+    try:
+        mesh = make_dp_tp_mesh(1, 1)
+        models = [get_model("GCN", 48, 64, 5, 0.0, "GCN", device=card,
+                            generator=torch.Generator().manual_seed(2))
+                  for _ in range(2)]
+        shard_params_tp(models[1], mesh)
+        res = []
+        for m in models:
+            loss, _ = make_learned_loss(cfg, m, 8000)(
+                g, torch.Generator(device=card).manual_seed(3))
+            names, params = zip(*m.named_parameters())
+            res.append((float(loss.detach()), dict(zip(
+                names, torch.autograd.grad(loss, params)))))
+        (loss_seq, g_seq), (loss_tp, g_tp) = res
+        assert loss_tp == pytest.approx(loss_seq, rel=1e-5)
+        for n, want in g_seq.items():
+            assert _rel_l2(g_tp[n], want.cpu()) <= 1e-4, n
+        launched = []
+        for m in models:
+            opt = DualOptimizer.create(m, cfg.GNN, cfg.lr, cfg.weight_decay)
+            step = make_train_step(cfg, m, opt, 8000, 5)
+            LAUNCHES.clear()
+            metrics = step(g, 0, torch.Generator(device=card).manual_seed(4))
+            torch.cuda.synchronize()
+            assert bool(torch.isfinite(metrics.loss))
+            launched.append(dict(LAUNCHES))
+        seq, tp = launched
+        assert seq.get("score_head_sampled_banded", 0) == 1, seq
+        assert tp.get("scatter_add", 0) > 0, tp
+        assert tp.get("segment_sum_scalar", 0) > 0, tp
+        for k in ("score_head_sampled", "score_head_sampled_banded",
+                  "score_head_bwd", "score_head_tiles"):
+            assert k not in tp, tp
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+
 @pytest.mark.quality
 def test_learned_beats_random_and_full_on_card():
     """tests/test_quality.py's claim through the port on the card."""

@@ -184,7 +184,13 @@ def test_port_imports_no_jax():
         "assert 'sgs_gnn_tpu_torch.viz.curves' in names\n"
         "assert 'sgs_gnn_tpu_torch.parallel.partitioned' in names\n"
         "assert 'sgs_gnn_tpu_torch.parallel.halo_train' in names\n"
-        "assert 'matplotlib' not in sys.modules\n"
+        "assert 'sgs_gnn_tpu_torch.parallel.tensor_parallel' in names\n"
+        "assert 'sgs_gnn_tpu_torch.baselines.neuralsparse' in names\n"
+        "assert 'sgs_gnn_tpu_torch.baselines.sparsegat' in names\n"
+        "assert 'sgs_gnn_tpu_torch.viz.embeddings' in names\n"
+        "assert 'sgs_gnn_tpu_torch.viz.graphs' in names\n"
+        "for lib in ('matplotlib', 'sklearn', 'networkx'):\n"
+        "    assert lib not in sys.modules, lib\n"
         "print(len(names))\n"
         "print(bad, file=sys.stderr)\n"
         "sys.exit(1 if bad else 0)\n")
