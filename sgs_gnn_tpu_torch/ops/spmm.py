@@ -169,13 +169,16 @@ def spmm(senders, receivers, weights, x, num_nodes: int,
     return scatter_add(msgs, receivers, num_nodes).to(x.dtype)
 
 
-def spmm_fused_plain(senders, receivers, weights, x, num_nodes: int):
-    """Plain version of K8: f32 products of the ``x.dtype``-rounded weight
-    and x rows, ``index_add_`` in f32; (N, F) float32. Edges with an
+def spmm_fused_plain(senders, receivers, weights, x, num_nodes: int,
+                     acc_dtype=torch.float32):
+    """Plain version of K8: products of the ``x.dtype``-rounded weight and
+    x rows, summed by ``index_add_``, all in ``acc_dtype``; (N, F) of
+    ``acc_dtype``. With torch.float64 the products of bf16 or f32 factors
+    are exact and the sums exact to ~1e-16 relative. Edges with an
     endpoint outside [0, N) contribute nothing."""
-    w = weights.to(x.dtype).float()
-    msgs = rows_at(x, senders, num_nodes).float() * w[:, None]
-    return scatter_add_plain(msgs, receivers, num_nodes)
+    w = weights.to(x.dtype).to(acc_dtype)
+    msgs = rows_at(x, senders, num_nodes).to(acc_dtype) * w[:, None]
+    return scatter_add_plain(msgs, receivers, num_nodes, acc_dtype)
 
 
 def spmm_bin_plain(senders, receivers, weights, num_nodes: int):

@@ -52,10 +52,22 @@ def card():
     return torch.device("cuda")
 
 
+F64 = torch.float64
+
+
 def _sum_tol(abs_sum):
-    # f32 sums in another order (atomics): error well under 1e-5 of the sum
-    # of magnitudes plus a floor for empty rows
+    # a kernel's f32 sums against the plain version's f64 sum of the same
+    # terms (acc_dtype=F64, exact in any order): the kernel's own rounding
+    # stays well under 1e-5 of the sum of magnitudes; a floor for empty rows
     return 1e-5 * abs_sum + 1e-6
+
+
+def _assert_sums(got, ref, abs_sum, slack=0.0):
+    """``got`` within ``_sum_tol(abs_sum)`` (+ ``slack``) of the f64
+    reference ``ref``."""
+    err = (got.double() - ref).abs()
+    limit = _sum_tol(abs_sum) + slack
+    assert bool((err <= limit).all()), float((err / limit).max())
 
 
 def _one_launch(name, route, run):
@@ -85,11 +97,9 @@ def _check_scatter(vals, ids, n):
             if plan.route == "slab" else [])
     assert sc.slab_chunk_modes() == {"sort": len(rows) - int(sum(rows)),
                                      "rows": int(sum(rows))}
-    ref = sc.scatter_add_plain(vals, ids, n)
-    tol = _sum_tol(sc.scatter_add_plain(vals.abs(), ids, n))
     assert out.dtype == torch.float32 and out.shape == (n, vals.shape[1])
-    assert bool(((out - ref).abs() <= tol).all()), float(
-        ((out - ref).abs() - tol).max())
+    _assert_sums(out, sc.scatter_add_plain(vals, ids, n, acc_dtype=F64),
+                 sc.scatter_add_plain(vals.abs(), ids, n, acc_dtype=F64))
     return plan
 
 
@@ -188,8 +198,8 @@ def test_segment_sum_scalar_padding_ids(card, n, ids_kind):
     assert sc.segment_plan(n, e).items_per_block <= 5000
     out = _one_launch("segment_sum_scalar", route,
                       lambda: sc.segment_sum_scalar(w, ids, n))
-    ref = sc.segment_sum_scalar_plain(w, ids, n)
-    assert bool(((out - ref).abs() <= _sum_tol(ref)).all())
+    ref = sc.segment_sum_scalar_plain(w, ids, n, acc_dtype=F64)
+    _assert_sums(out, ref, ref)
     if ids_kind == "all_out":
         assert not bool(out.any())
 
@@ -205,8 +215,8 @@ def test_segment_sum_scalar_kernel(card, n):
     assert route == ("shared" if n <= 12288 else "global")
     out = _one_launch("segment_sum_scalar", route,
                       lambda: sc.segment_sum_scalar(w, ids, n))
-    ref = sc.segment_sum_scalar_plain(w, ids, n)
-    assert bool(((out - ref).abs() <= _sum_tol(ref)).all())
+    ref = sc.segment_sum_scalar_plain(w, ids, n, acc_dtype=F64)
+    _assert_sums(out, ref, ref)
     ones = torch.ones_like(w)                  # counts are exact in f32
     assert torch.equal(sc.segment_sum_scalar(ones, ids, n),
                        sc.segment_sum_scalar_plain(ones, ids, n))
@@ -232,11 +242,8 @@ def test_segment_sum_scalar_runs(card, n, ids_kind):
     route = "shared" if n <= 12288 else "global"
     out = _one_launch("segment_sum_scalar", route,
                       lambda: sc.segment_sum_scalar(w, ids, n))
-    # an f64 reference: the plain version's f32 sum of 300k items on one id
-    # is itself ~1e-5 off
-    ref = torch.zeros(n, dtype=torch.float64, device=card).index_add_(
-        0, ids.long(), w.double())
-    assert bool(((out.double() - ref).abs() <= _sum_tol(ref)).all())
+    ref = sc.segment_sum_scalar_plain(w, ids, n, acc_dtype=F64)
+    _assert_sums(out, ref, ref)
     ones = torch.ones_like(w)
     assert torch.equal(sc.segment_sum_scalar(ones, ids, n),
                        sc.segment_sum_scalar_plain(ones, ids, n))
@@ -268,11 +275,11 @@ def test_scatter_add_sorted_kernel(card, dtype, n, e, f, block, band):
         out = sc.scatter_add_sorted(v, i, n, band, block)
         torch.cuda.synchronize()
         assert LAUNCHES["scatter_add_sorted"] == before + 1
-        ref = sc.scatter_add_sorted_plain(v, i, n, band, block)
-        tol = _sum_tol(sc.scatter_add_sorted_plain(v.abs(), i, n, band,
-                                                   block))
         assert out.dtype == torch.float32 and out.shape == (n, f)
-        assert bool(((out - ref).abs() <= tol).all())
+        _assert_sums(out, sc.scatter_add_sorted_plain(v, i, n, band, block,
+                                                      acc_dtype=F64),
+                     sc.scatter_add_sorted_plain(v.abs(), i, n, band, block,
+                                                 acc_dtype=F64))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -295,22 +302,22 @@ def test_spmm_fused_kernel(card, dtype, f, order):
     torch.cuda.synchronize()
     assert LAUNCHES["spmm_fused"] == before + 1
     assert out.dtype == dtype
-    ref = sp.spmm_fused_plain(s, r, w.detach(), x.detach(), n)
-    tol = _sum_tol(sp.spmm_fused_plain(s, r, w.detach(), x.detach().abs(),
-                                       n))
-    got = sp._spmm_fused(s, r, w.detach(), x.detach(), n)
-    assert bool(((got - ref).abs() <= tol).all())
+    ref = sp.spmm_fused_plain(s, r, w.detach(), x.detach(), n,
+                              acc_dtype=F64)
+    abs_sum = sp.spmm_fused_plain(s, r, w.detach(), x.detach().abs(), n,
+                                  acc_dtype=F64)
+    _assert_sums(sp._spmm_fused(s, r, w.detach(), x.detach(), n), ref,
+                 abs_sum)
     # the result is cast to x's type: one rounding of the f32 sums
-    assert bool(((out.float() - ref).abs()
-                 <= tol + 2 ** -8 * ref.abs()).all())
+    _assert_sums(out, ref, abs_sum, 2 ** -8 * ref.abs())
     cot = torch.randn(n, f, generator=g, device=card).to(dtype)
     before = LAUNCHES["spmm_fused"]
     dw, dx = torch.autograd.grad(out, (w, x), cot)
     assert LAUNCHES["spmm_fused"] == before + 1     # dx: K8, reversed edges
-    dx_ref = sp.spmm_fused_plain(r, s, w.detach(), cot, n)
-    dx_tol = _sum_tol(sp.spmm_fused_plain(r, s, w.detach(), cot.abs(), n))
-    assert bool(((dx.float() - dx_ref).abs()
-                 <= dx_tol + 2 ** -8 * dx_ref.abs()).all())
+    dx_ref = sp.spmm_fused_plain(r, s, w.detach(), cot, n, acc_dtype=F64)
+    _assert_sums(dx, dx_ref, sp.spmm_fused_plain(r, s, w.detach(), cot.abs(),
+                                                 n, acc_dtype=F64),
+                 2 ** -8 * dx_ref.abs())
     dw_ref = torch.sum(sc.rows_at(x.detach(), s, n)
                        * sc.rows_at(cot, r, n), dim=-1).float()
     assert torch.equal(dw, dw_ref)
@@ -324,11 +331,10 @@ def _check_spmm(s, r, w, x, n, route):
     assert plan.route == route
     out = _one_launch("spmm_fused", route,
                       lambda: sp._spmm_fused(s, r, w, x, n))
-    ref = sp.spmm_fused_plain(s, r, w, x, n)
-    tol = _sum_tol(sp.spmm_fused_plain(s, r, w, x.abs(), n))
+    ref = sp.spmm_fused_plain(s, r, w, x, n, acc_dtype=F64)
     assert out.dtype == torch.float32 and out.shape == ref.shape
-    assert bool(((out - ref).abs() <= tol).all()), float(
-        ((out - ref).abs() - tol).max())
+    _assert_sums(out, ref, sp.spmm_fused_plain(s, r, w, x.abs(), n,
+                                               acc_dtype=F64))
     return out
 
 
@@ -462,18 +468,17 @@ def test_spmm_fused_captured_in_a_cuda_graph(card, f):
     assert torch.equal(static[1], eager[1])     # dw: the SDDMM, plain torch
     wd, xd = w.detach(), x.detach()
     # out and dx: each within the f32 sums' tolerance and one bf16 rounding
-    # (half an ulp) of the plain version; graph and eager sum in other
-    # orders, so their bf16 results may differ by a whole ulp
-    for name, ref, tol, pair in (
-            ("out", sp.spmm_fused_plain(s, r, wd, xd, n),
-             _sum_tol(sp.spmm_fused_plain(s, r, wd, xd.abs(), n)),
+    # (half an ulp) of the plain version's f64 sum; graph and eager sum in
+    # other orders, so their bf16 results may differ by a whole ulp
+    for ref, abs_sum, pair in (
+            (sp.spmm_fused_plain(s, r, wd, xd, n, acc_dtype=F64),
+             sp.spmm_fused_plain(s, r, wd, xd.abs(), n, acc_dtype=F64),
              (static[0], eager[0])),
-            ("dx", sp.spmm_fused_plain(r, s, wd, cot, n),
-             _sum_tol(sp.spmm_fused_plain(r, s, wd, cot.abs(), n)),
+            (sp.spmm_fused_plain(r, s, wd, cot, n, acc_dtype=F64),
+             sp.spmm_fused_plain(r, s, wd, cot.abs(), n, acc_dtype=F64),
              (static[2], eager[2]))):
         for got in pair:
-            assert bool(((got.float() - ref).abs()
-                         <= tol + 2 ** -8 * ref.abs()).all()), name
+            _assert_sums(got, ref, abs_sum, 2 ** -8 * ref.abs())
 
 
 def _head(card, g, n, f, k, dtype):
@@ -736,11 +741,11 @@ def test_gather_rows_sorted_band_on_card(card):
     assert LAUNCHES["scatter_add_sorted"] == \
         before.get("scatter_add_sorted", 0) + 1
     assert LAUNCHES["scatter_add"] == before.get("scatter_add", 0)
-    ref = sc.scatter_add_plain(cot, ids, n)
-    tol = _sum_tol(sc.scatter_add_plain(cot.abs(), ids, n))
+    ref = sc.scatter_add_plain(cot, ids, n, acc_dtype=F64)
     # one rounding to bf16 of the f32 sums
-    assert bool(((dx.float() - ref).abs() <= tol + 2 ** -8 * ref.abs())
-                .all())
+    _assert_sums(dx, ref, sc.scatter_add_plain(cot.abs(), ids, n,
+                                               acc_dtype=F64),
+                 2 ** -8 * ref.abs())
 
 
 def test_kernels_raise_on_bad_input(card):
@@ -809,9 +814,9 @@ def test_row_kernels_on_a_padded_partition(card):
     # and on an H100 (tools/graphed_readings.py k2_ghost) its sum (~5.3e5)
     # strayed from the f64 one by up to 9.4, beyond the limit (5.3) in 12
     # of 40 calls, while the kernel's stayed within 0.18
-    ref = torch.zeros(g.num_nodes, dtype=torch.float64, device=card
-                      ).index_add_(0, g.receivers.long(), w.double())
-    assert bool(((out.double() - ref).abs() <= _sum_tol(ref)).all())
+    ref = sc.segment_sum_scalar_plain(w, g.receivers, g.num_nodes,
+                                      acc_dtype=F64)
+    _assert_sums(out, ref, ref)
 
 
 def test_learned_run_experiment_on_card(card, tmp_path):

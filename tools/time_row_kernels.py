@@ -9,7 +9,8 @@ time of the kernel alone (``device_ms``).
     python3 tools/time_row_kernels.py ROOT
 
 The cases, timing and bounds come from this checkout's chip_smoke.py; the
-kernels and wrappers from ROOT's ``sgs_gnn_tpu_torch``. For a parent/change
+kernels and wrappers from ROOT's ``sgs_gnn_tpu_torch``, whose plain versions
+must take ``acc_dtype`` (the checks' f64 reference). For a parent/change
 comparison on one card, unpack both commits with ``git archive`` into a
 git-ignored directory and run them in turns (parent, change, change,
 parent):
