@@ -140,6 +140,26 @@ Phases, each printing one JSON line:
               lowered by the profiler); an ``eval_step`` line
               (``make_eval_step`` of the learned run timed alone over
               every partition, and profiled).
+  6b. reddit_scale  Scripts/run_reddit_scale.sh at full size:
+              SyntheticReddit (232,965 nodes, 116.5M edges) through the
+              port's CLI parser (the script's flags, 3 epochs) and
+              run_experiment, learned hybrid_rescore on the graphed route,
+              epoch 1's batch loop under no_host_sync: a ``reddit_scale``
+              line (host seconds by stage of the set-up, from
+              ``HostStages``, and the host peak RSS; the plan; the
+              batches' bytes on the card; graphs and graph memory; epoch
+              and eval times, steady edges/s, peak memory, losses, F1s,
+              launches per epoch), checked: the native
+              partitioner, the JAX package's plan (115 parts, 3 shape
+              classes [32, 60, 23] x [778284, 739802, 590520], N 2312,
+              862,720 tile slots), the graphed route with 3 classes, the
+              launches per epoch the plan implies (``reddit_launches``:
+              114 sampled batches and one small one),
+              finite losses and a final test F1 of at least 0.93 (which
+              shows that the backbone trains: random, edge and full reach
+              it too on this graph; tools/reddit_scale_torch.py holds
+              learned against random at this scale); then a
+              ``padded_rows`` line on its most-padded partition.
   7. quality  tests/test_quality.py's configuration (SyntheticSBMLow, f32,
               nhid 64, 60 epochs) through run_experiment for learned,
               random and full: learned must beat random by 0.2 and full by
@@ -2469,13 +2489,12 @@ def experiment_args(mode, results_dir, epochs=EXPERIMENT_EPOCHS, extra=()):
             "--results_dir", results_dir, *extra]
 
 
-def check_padded_rows(torch, cfg, ds):
+def check_padded_rows(torch, batches, cell):
     """K1 and K2 against their plain versions' f64 sums on the partition
-    with the most padding: its receivers end in one run of ghost-node ids
-    (every padding edge is a self-loop on node max_n - 1)."""
+    of ``batches`` (the ``cell``'s) with the most padding: its receivers
+    end in one run of ghost-node ids (every padding edge is a self-loop on
+    node max_n - 1)."""
     from sgs_gnn_tpu_torch.ops import scatter as sc
-    from sgs_gnn_tpu_torch.run import driver
-    batches, q, _ = driver.prepare_batches(cfg, ds, DEVICE)
     valid = [int(g.edge_mask.sum()) for g in batches]
     bi = max(range(len(batches)),
              key=lambda i: batches[i].num_edges - valid[i])
@@ -2484,8 +2503,8 @@ def check_padded_rows(torch, cfg, ds):
     pad = g.num_edges - valid[bi]
     gen = torch.Generator(device=DEVICE).manual_seed(17)
     f64 = torch.float64
-    out = dict(batch=bi, edges=g.num_edges, valid_edges=valid[bi],
-               ghost_ids=pad, cases=[])
+    out = dict(cell=cell, batch=bi, nodes=g.num_nodes, edges=g.num_edges,
+               valid_edges=valid[bi], ghost_ids=pad, cases=[])
     check(pad > 0 and int((g.receivers == ghost).sum()) >= pad,
           f"padded batch {bi}: {pad} padding edges")
     for name, ids in (("receivers", g.receivers), ("senders", g.senders)):
@@ -2510,8 +2529,6 @@ def check_padded_rows(torch, cfg, ds):
                              ghost_sum_plain=float(ref[ghost])))
     emit("padded_rows", tolerance="1e-5 of the summed magnitudes per row "
          "+ 1e-6 against the f64 sum of the same terms", **out)
-    del batches
-    torch.cuda.empty_cache()
 
 
 def run_experiment_counted(torch, cfg, ds, label, profile_epoch=None):
@@ -2692,6 +2709,7 @@ def phase_experiment(torch):
     launches} for the kernels line."""
     import csv
     import tempfile
+    from sgs_gnn_tpu_torch.run import driver
     from sgs_gnn_tpu_torch.run.cli import config_from_args
     t0 = time.perf_counter()
     ds = experiment_dataset()
@@ -2702,7 +2720,10 @@ def phase_experiment(torch):
             m, results_dir, extra=(["--checkpoint_every", "1"]
                                    if m == "learned" else [])))
             for m in EXPERIMENT_MODES}
-        check_padded_rows(torch, cfgs["learned"], ds)
+        batches, _, _ = driver.prepare_batches(cfgs["learned"], ds, DEVICE)
+        check_padded_rows(torch, batches, "experiment")
+        del batches
+        torch.cuda.empty_cache()
         results = {}
         for mode, cfg in cfgs.items():
             runs = {}
@@ -2839,6 +2860,320 @@ def _memory_flags_run(torch, ds, results_dir, plain):
          validated_batches=validated)
     torch.cuda.empty_cache()
     return launches
+
+
+# ---------------------------------------------------------- reddit_scale
+# Scripts/run_reddit_scale.sh:12-19 and run_reddit_modes.sh:14-20 (the two
+# flag sets are the same): everything but the dataset, mode and epochs.
+# The phase and tools/reddit_scale_torch.py build their runs from these.
+REDDIT_FLAGS = ("--runs", "1", "--edge_mlp_type", "GCN", "--GNN", "GCN",
+         "--sparse_edge_mlp", "True", "--conditional", "True", "--reg1",
+         "True", "--reg2", "True", "--sample_perc", "0.2", "--pipeline",
+         "hybrid", "--metis_threshold", "1000000", "--dtype", "bfloat16",
+         "--prng_impl", "rbg", "--approx_topk", "true", "--num_samples_eval",
+         "1", "--convergence", "0.0", "--save_csv", "false", "--stats",
+         "true", "--log", "true")
+
+
+def reddit_args(dataset, mode, epochs, extra=()):
+    """The Reddit scripts' command line for the port's parser."""
+    return ["--dataset", dataset, "--mode", mode, "--epochs", str(epochs),
+            *REDDIT_FLAGS, *extra]
+
+
+def reddit_config(dataset, mode, epochs, extra=()):
+    """The port's ``Config`` of that command line."""
+    from sgs_gnn_tpu_torch.run.cli import config_from_args
+    return config_from_args(reddit_args(dataset, mode, epochs, extra))
+
+
+def reset_peak_rss() -> bool:
+    """Sets the process's peak resident set (VmHWM) to its current size;
+    False where the kernel does not allow it."""
+    try:
+        with open("/proc/self/clear_refs", "w") as fh:
+            fh.write("5")
+        return True
+    except OSError:
+        return False
+
+
+def rss_gb(field="VmHWM") -> float:
+    """The process's resident set in GB: its peak (VmHWM) or its current
+    size (VmRSS), from /proc/self/status; where that file lacks them, the
+    peak from getrusage (never reset) and the size from /proc/self/statm."""
+    with open("/proc/self/status") as fh:
+        for line in fh:
+            if line.startswith(field + ":"):
+                return int(line.split()[1]) * 1024 / 1e9
+    if field == "VmHWM":
+        import resource
+        return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9
+    import os
+    with open("/proc/self/statm") as fh:
+        return int(fh.read().split()[1]) * os.sysconf("SC_PAGE_SIZE") / 1e9
+
+
+class HostStages:
+    """Host seconds of a run's set-up by stage, read by wrapping the port's
+    functions while the context is active:
+      generation     the synthetic generator (get_dataset's load);
+      to_undirected  and is_undirected, degree_prior: the rest of
+                     get_dataset apart (``get_dataset`` is the caller's);
+      partition      ``partition_nodes`` (the native partitioner);
+      subgraphs      ``induced_subgraphs`` on the host, the tile index
+                     included: every ``Graph.build`` runs on the host and
+                     its tensors are then copied to the device,
+      copy           that copy, synchronised.
+    ``batches`` holds the last ``prepare_batches`` result; ``batch_bytes``
+    the bytes of its tensors."""
+
+    WRAPPED = (("registry", ("community_sbm_graph", "generation"),
+                ("community_sbm_low_graph", "generation"),
+                ("to_undirected", "to_undirected"),
+                ("is_undirected", "is_undirected"),
+                ("degree_prior", "degree_prior")),
+               ("driver", ("partition_nodes", "partition"),
+                ("induced_subgraphs", "subgraphs"),
+                ("prepare_batches", "prepare_batches")))
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.seconds = {}
+        self.batches = None
+        self._saved = []
+
+    def _add(self, stage, dt):
+        self.seconds[stage] = self.seconds.get(stage, 0.0) + dt
+
+    def _timed(self, fn, stage):
+        def wrapper(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                out = fn(*args, **kwargs)
+            finally:
+                self._add(stage, time.perf_counter() - t0)
+            if stage == "prepare_batches":
+                self.batches = out[0]
+            return out
+        return wrapper
+
+    def __enter__(self):
+        from sgs_gnn_tpu_torch.core.graph import Graph
+        from sgs_gnn_tpu_torch.data import registry
+        from sgs_gnn_tpu_torch.run import driver
+        mods = dict(registry=registry, driver=driver)
+        for mod, *names in self.WRAPPED:
+            for name, stage in names:
+                fn = getattr(mods[mod], name)
+                self._saved.append((mods[mod], name, fn))
+                setattr(mods[mod], name, self._timed(fn, stage))
+        build = Graph.build
+        torch = self.torch
+
+        def build_then_copy(*args, device="cuda", **kwargs):
+            g = build(*args, device="cpu", **kwargs)
+            t0 = time.perf_counter()
+            g = g.to(device)
+            if torch.device(device).type == "cuda":
+                torch.cuda.synchronize()
+            self._add("copy", time.perf_counter() - t0)
+            return g
+        self._saved.append((Graph, "build", staticmethod(build)))
+        Graph.build = staticmethod(build_then_copy)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in reversed(self._saved):
+            setattr(owner, name, fn)
+        self._saved.clear()
+        return False
+
+    @property
+    def batch_bytes(self) -> int:
+        """Bytes of every tensor of the captured batches."""
+        return sum(t.numel() * t.element_size() for g in self.batches
+                   for t in vars(g).values()
+                   if isinstance(t, self.torch.Tensor))
+
+    def summary(self, dataset_s):
+        """The stages as the ``host_s`` of a line: get_dataset split into
+        generation, to_undirected and the rest; partition, subgraphs (host
+        only) and the copy to the device."""
+        s = self.seconds
+        sub = s.get("subgraphs", 0.0) - s.get("copy", 0.0)
+        return dict(
+            generation=s.get("generation", 0.0),
+            to_undirected=s.get("to_undirected", 0.0),
+            get_dataset_rest=dataset_s - s.get("generation", 0.0)
+            - s.get("to_undirected", 0.0),
+            is_undirected=s.get("is_undirected", 0.0),
+            degree_prior=s.get("degree_prior", 0.0),
+            partition=s.get("partition", 0.0), subgraphs=sub,
+            copy=s.get("copy", 0.0),
+            prepare_batches_rest=s.get("prepare_batches", 0.0)
+            - s.get("partition", 0.0) - s.get("subgraphs", 0.0),
+            total=dataset_s + s.get("prepare_batches", 0.0))
+
+
+def plan_of(batches):
+    """N of every batch (padded), the tile slots of the first batch and
+    per shape class."""
+    by_class = {}
+    for g in batches:
+        by_class.setdefault(g.num_edges, set()).add(
+            0 if g.tile_t == 0 else g.tile_ls.shape[0])
+    return dict(batch_nodes=batches[0].num_nodes,
+                tile_t=batches[0].tile_t,
+                tile_slots=(batches[0].tile_ls.shape[0]
+                            if batches[0].tile_t else 0),
+                tile_slots_by_class={e: sorted(v) for e, v in
+                                     sorted(by_class.items(), reverse=True)})
+
+
+# Scripts/run_reddit_scale.sh on the port: SyntheticReddit at full size
+# (232,965 nodes, 116.5M edges, 602 features, 41 classes) through the CLI
+# parser and run_experiment, learned hybrid_rescore, bf16, q = 200,000,
+# num_samples_eval 1, graphed. Epoch 0 holds the captures, epochs 1 and 2
+# are steady.
+REDDIT_EPOCHS = 3
+# the JAX package's plan of this graph (logs/reddit_scale_tpu.log:4-11):
+# parts, [batches, padded edges] per shape class, N padded, the first
+# batch's tile slots
+REDDIT_JAX_PLAN = dict(parts=115, shape_classes=[[32, 778284], [60, 739802],
+                                                 [23, 590520]],
+                       batch_nodes=2312, tile_slots=862720)
+# the JAX package reached 0.9512 after its first epoch on this graph
+# (logs/reddit_scale_tpu.log:13); the margin is for the other random
+# streams. At He 0.73 random, edge and full sampling reach ~0.951 too
+# (logs/reddit_scale_mode_*_tpu.log), so this floor shows only that the
+# backbone trains at this size, not that the sparsifier picks good edges:
+# the learned-against-random separation at this scale is
+# tools/reddit_scale_torch.py's SyntheticRedditLow runs (the quality
+# phase holds it at a small size)
+REDDIT_MIN_TEST_F1 = 0.93
+
+
+def reddit_launches(plan, draws):
+    """Launches per epoch of the learned run on the batches of ``plan``
+    (``RunResult.plan``; no batch skipped, so every batch with at most q
+    valid edges is a small one, in training and in the eval):
+      train, per sampled batch the hybrid_rescore step's (PIPELINES); per
+        small batch the backbone on all its edges with gradients (2 GCN
+        layers: K1 forward and backward 4, K2 2);
+      eval, per sampled batch the scorer's encoder over every edge (2 GCN
+        layers: K1 2, K2 2), K3 over every edge, then per draw the
+        backbone (K1 2, K2 2); per small batch the backbone once (K1 2,
+        K2 2)."""
+    big, small = plan["big"], plan["small"]
+    train = {k: v * big for k, v in PIPELINES["hybrid_rescore"][2].items()}
+    train["scatter_add"] += 4 * small
+    train["segment_sum_scalar"] += 2 * small
+    rows = (2 + 2 * draws) * big + 2 * small
+    return train, dict(scatter_add=rows, segment_sum_scalar=rows,
+                       score_head_sampled=big)
+
+
+def phase_reddit_scale(torch):
+    """The headline run at full size on the card, with its host set-up by
+    stage (``HostStages``), the JAX plan, graphs and graph memory, epoch
+    and eval times, peak memory, F1s and launches per epoch held to
+    ``reddit_launches``; then the row check on its most-padded partition.
+    The F1 floor shows that the backbone trains, not the sparsifier's
+    edge choice (see ``REDDIT_MIN_TEST_F1``). Returns {path: launches}."""
+    from sgs_gnn_tpu_torch.data import registry
+    from sgs_gnn_tpu_torch.run import driver
+    t_phase = time.perf_counter()
+    rss_start = rss_gb("VmRSS")
+    rss_reset = reset_peak_rss()
+    cfg = reddit_config("SyntheticReddit", "learned", REDDIT_EPOCHS)
+    check(cfg.scan_epoch == "auto" and cfg.num_samples_eval == 1
+          and cfg.dtype == "bfloat16", f"reddit_scale: parsed {cfg}")
+    mem = {}
+    train_epoch, evaluate = driver._train_epoch, driver._evaluate
+
+    def first_train(*args):
+        # the batches are on the card, nothing is captured yet
+        mem.setdefault("reserved_before", torch.cuda.memory_reserved())
+        mem.setdefault("allocated_before", torch.cuda.memory_allocated())
+        return train_epoch(*args)
+
+    def first_eval(*args):
+        out = evaluate(*args)
+        # epoch 0's train and eval graphs are captured
+        mem.setdefault("reserved_after", torch.cuda.memory_reserved())
+        return out
+    driver._train_epoch, driver._evaluate = first_train, first_eval
+    try:
+        with HostStages(torch) as st:
+            t0 = time.perf_counter()
+            ds = registry.get_dataset(cfg)
+            dataset_s = time.perf_counter() - t0
+            res, lines, per_epoch, launches, seconds = \
+                run_experiment_counted(torch, cfg, ds, "reddit_scale")
+    finally:
+        driver._train_epoch, driver._evaluate = train_epoch, evaluate
+    batches, plan = st.batches, res.plan
+    got = plan_of(batches)
+    got_plan = dict(parts=plan["parts"], shape_classes=plan["shape_classes"],
+                    batch_nodes=got["batch_nodes"],
+                    tile_slots=got["tile_slots"])
+    peak_reserved = torch.cuda.max_memory_reserved()
+    want_train, want_eval = reddit_launches(plan, cfg.num_samples_eval)
+    emit("reddit_scale", dataset=ds.name, nodes=ds.num_nodes,
+         edges=ds.num_edges, features=ds.x.shape[1],
+         classes=ds.num_classes, he=ds.He,
+         host_s=st.summary(dataset_s), host_rss_start_gb=rss_start,
+         host_peak_rss_gb=rss_gb("VmHWM"), host_peak_rss_reset=rss_reset,
+         partitioner=plan["partitioner"], parts=plan["parts"],
+         shape_classes=plan["shape_classes"], q=plan["q"],
+         valid_edges=plan["valid_edges"],
+         batches_per_epoch=dict(big=plan["big"], small=plan["small"],
+                                skipped=plan["skipped"]),
+         **got, jax_plan=REDDIT_JAX_PLAN,
+         batch_bytes=st.batch_bytes,
+         device_allocated_before_epoch0_mb=mem["allocated_before"] / 2**20,
+         route=res.epoch_route, graphs=res.graphs,
+         graph_mb=(mem["reserved_after"] - mem["reserved_before"]) / 2**20,
+         epoch_s=res.epoch_times, eval_ms=[t * 1e3 for t in res.eval_times],
+         edges_per_s_steady=res.edges_per_s_steady,
+         peak_allocated_mb=res.peak_device_mem_mb,
+         peak_reserved_mb=peak_reserved / 2**20,
+         losses=res.losses,
+         final_f1=dict(train=res.final_train_f1, val=res.final_val_f1,
+                       test=res.final_test_f1),
+         test_curve=res.test_curve, min_test_f1=REDDIT_MIN_TEST_F1,
+         launches_per_epoch=per_epoch,
+         expected_per_epoch=dict(train=want_train, eval=want_eval),
+         launches=launches, sync_checked_epoch=SYNC_CHECKED_EPOCH,
+         run_s=seconds, phase_s=time.perf_counter() - t_phase,
+         fastpath=[ln for ln in lines
+                   if ln.startswith(("[fastpath]", "[batches]"))],
+         stats=next(ln for ln in lines if ln.startswith("[stats]")))
+    check(plan["partitioner"] == "native",
+          f"reddit_scale: partitioner {plan['partitioner']}")
+    check(got_plan == REDDIT_JAX_PLAN,
+          f"reddit_scale: plan {got_plan}, JAX's {REDDIT_JAX_PLAN}")
+    check(res.epoch_route == "graphed"
+          and res.graphs.get("shape_classes") == 3
+          and res.graphs["train_replays"] > 0
+          and res.graphs["eval_replays"] > 0,
+          f"reddit_scale: route {res.epoch_route}, graphs {res.graphs}")
+    check(plan["skipped"] == 0, f"reddit_scale: skipped batches {plan}")
+    for part, want in (("train", want_train), ("eval", want_eval)):
+        check(len(per_epoch[part]) == REDDIT_EPOCHS
+              and all(e == want for e in per_epoch[part]),
+              f"reddit_scale: {part} launches per epoch {per_epoch[part]}, "
+              f"the plan implies {want} ({plan})")
+    _check_result("reddit_scale", res)
+    check(res.final_test_f1 >= REDDIT_MIN_TEST_F1,
+          f"reddit_scale: test F1 {res.final_test_f1} < "
+          f"{REDDIT_MIN_TEST_F1}")
+    check_padded_rows(torch, batches, "reddit_scale")
+    del batches, st, ds
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"reddit_scale": launches}
 
 
 def phase_quality(torch):
@@ -3324,41 +3659,53 @@ def main():
     from sgs_gnn_tpu_torch.data import degree_prior
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    phase_device(torch)
-    phase_sass(torch)
+    seconds = {}
+
+    def run(name, fn, *args):
+        # each phase's wall seconds, a ``phase_s`` line after it
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        emit("phase_s", name=name, seconds=seconds[name])
+        return out
+    run("device", phase_device, torch)
+    run("sass", phase_sass, torch)
 
     arrays = build_partition()
     x, edge_index, y, train = arrays
     g = Graph.build(x, edge_index, y, train, ~train, None, device=DEVICE,
                     prob=degree_prior(edge_index[0], edge_index[1], N_NODES),
                     sort_by_receiver=True, tile_index=True)
-    kernels = phase_kernels(torch, g)
-    phase_head_kernels(torch, g, kernels)
-    phase_sparse_kernels(torch, g, kernels)
-    paths = {"fused_spmm": phase_fused_spmm(torch, g)}
+    kernels = run("kernel", phase_kernels, torch, g)
+    run("head_kernels", phase_head_kernels, torch, g, kernels)
+    run("sparse_kernels", phase_sparse_kernels, torch, g, kernels)
+    paths = {"fused_spmm": run("fused_spmm", phase_fused_spmm, torch, g)}
     del g
     torch.cuda.empty_cache()
-    paths["serve"] = phase_serve(torch, arrays)
+    paths["serve"] = run("serve", phase_serve, torch, arrays)
     g = train_graph(torch, arrays)
-    paths.update(phase_train(torch, arrays, g))
-    paths.update(phase_models(torch, arrays, g))
-    paths.update(phase_dense(torch, g, kernels, paths))
+    paths.update(run("train", phase_train, torch, arrays, g))
+    paths.update(run("models", phase_models, torch, arrays, g))
+    paths.update(run("dense", phase_dense, torch, g, kernels, paths))
     del g
     torch.cuda.empty_cache()
-    paths.update(phase_experiment(torch))
-    phase_quality(torch)
-    paths.update(phase_baselines(torch, arrays))
-    paths.update(phase_embeddings(torch, arrays))
+    paths.update(run("experiment", phase_experiment, torch))
+    paths.update(run("reddit_scale", phase_reddit_scale, torch))
+    run("quality", phase_quality, torch)
+    paths.update(run("baselines", phase_baselines, torch, arrays))
+    paths.update(run("embeddings", phase_embeddings, torch, arrays))
     # last, so that no earlier measurement runs beside the process group
     # or what its phases leave on the card
     g = train_graph(torch, arrays)
-    paths.update(phase_parallel(torch, g))
+    paths.update(run("parallel", phase_parallel, torch, g))
     del g
     torch.cuda.empty_cache()
-    paths.update(phase_tensor_parallel(torch, arrays))
+    paths.update(run("tensor_parallel", phase_tensor_parallel, torch,
+                     arrays))
     with tempfile.TemporaryDirectory() as results_dir:
-        paths.update(phase_parallel_experiment(torch, experiment_dataset(),
-                                               results_dir))
+        paths.update(run("parallel_experiment", phase_parallel_experiment,
+                         torch, experiment_dataset(), results_dir))
+    emit("phase_s", name="all", seconds=sum(seconds.values()), by=seconds)
 
     line = []
     for name, (source, replaces) in KERNELS.items():

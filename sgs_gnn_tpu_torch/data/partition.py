@@ -103,6 +103,21 @@ def shape_class_targets(counts, k: int) -> List[int]:
     return [int(t) for t in targets]
 
 
+def part_edge_ids(part_s: np.ndarray, part_r: np.ndarray,
+                  num_parts: int) -> List[np.ndarray]:
+    """The ids of the edges inside each part (both endpoints in part p),
+    ascending, for p < ``num_parts``: what ``np.where((part_s == part_r) &
+    (part_s == p))`` gives, from one stable grouping of the kept edges
+    instead of one pass over every edge per part."""
+    kept = np.flatnonzero(part_s == part_r)
+    keys = part_s[kept]
+    # a stable sort keeps each part's ids ascending
+    kept = kept[np.argsort(keys, kind="stable")]
+    counts = np.bincount(keys, minlength=num_parts)[:num_parts]
+    ends = np.cumsum(counts)
+    return [kept[a:b] for a, b in zip(ends - counts, ends)]
+
+
 def induced_subgraphs(x, edge_index, y, train_mask, val_mask, test_mask,
                       part: np.ndarray, num_parts: int,
                       pad: bool = True, prior: str = "degree",
@@ -117,13 +132,9 @@ def induced_subgraphs(x, edge_index, y, train_mask, val_mask, test_mask,
     per batch from the batch's own edges, as the reference's ClusterLoader
     slices ``batch.prob``."""
     s_all, r_all = edge_index
-    same_part = part[s_all] == part[r_all]
     out = []
-    max_n = max(int((part == p).sum()) for p in range(num_parts)) + 1
-    per_part_edges = []
-    for p in range(num_parts):
-        in_p = same_part & (part[s_all] == p)
-        per_part_edges.append(np.where(in_p)[0])
+    max_n = int(np.bincount(part, minlength=num_parts)[:num_parts].max()) + 1
+    per_part_edges = part_edge_ids(part[s_all], part[r_all], num_parts)
     counts_e = [len(e) for e in per_part_edges]
     pad_targets = shape_class_targets(counts_e, shape_classes) if pad \
         else [None] * num_parts

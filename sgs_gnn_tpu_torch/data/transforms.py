@@ -13,13 +13,26 @@ import scipy.sparse as sp
 
 def to_undirected(edge_index: np.ndarray) -> np.ndarray:
     """Symmetrize + coalesce duplicate edges (PyG to_undirected; reference
-    datasets.py:189-190)."""
+    datasets.py:189-190): the distinct (s, r) pairs of both directions,
+    sorted by s * n + r. The pairs are decoded from the sorted distinct
+    keys, which equals gathering each key's first occurrence (the JAX
+    package's ``np.unique(..., return_index=True)``) without its stable
+    argsort."""
     s = np.concatenate([edge_index[0], edge_index[1]])
     r = np.concatenate([edge_index[1], edge_index[0]])
-    n = max(int(s.max()), int(r.max())) + 1 if len(s) else 0
+    if not len(s):
+        return np.zeros((2, 0), np.int32)
+    n = max(int(s.max()), int(r.max())) + 1
     key = s.astype(np.int64) * n + r
-    _, idx = np.unique(key, return_index=True)
-    return np.stack([s[idx], r[idx]]).astype(np.int32)
+    # sorted in place, not copied as np.unique would: the keys of a
+    # Reddit-sized graph take 1.9 GB
+    del s, r
+    key.sort()
+    keep = np.empty(key.shape, bool)
+    keep[0] = True
+    np.not_equal(key[1:], key[:-1], out=keep[1:])
+    key = key[keep]
+    return np.stack([key // n, key % n]).astype(np.int32)
 
 
 def is_undirected(edge_index: np.ndarray, num_nodes: int) -> bool:

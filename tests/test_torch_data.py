@@ -303,23 +303,8 @@ GRAPH_FIELDS = ("x", "senders", "receivers", "y", "train_mask", "val_mask",
                 "tile_mask", "tile_aux")
 
 
-@pytest.mark.parametrize("tiles", [False, True])
-@pytest.mark.parametrize("classes", [1, 3])
-def test_induced_subgraphs_match_jax(tiles, classes):
-    # ~100 nodes per part: one 128-row tile, dense enough that the tile
-    # layout is kept, with slot counts that differ per part
-    x, ei, y, tr, va, te = _sbm()
-    part = jpart.partition_nodes(ei, 300, 3, method="native")
-    jb = jpart.induced_subgraphs(x, ei, y, tr, va, te, part, 3,
-                                 tile_index=tiles, shape_classes=classes)
-    tb = tpart.induced_subgraphs(x, ei, y, tr, va, te, part, 3,
-                                 tile_index=tiles, shape_classes=classes,
-                                 device="cpu")
-    assert len({g.num_edges for g in tb}) == min(classes, 3)
-    if tiles:
-        assert all(g.tile_t == 128 for g in tb)
-        assert len({g.tile_ls.shape[0] for g in tb}) == len(
-            {g.num_edges for g in tb})
+def _same_batches(jb, tb):
+    assert len(jb) == len(tb)
     for i, (a, b) in enumerate(zip(jb, tb)):
         for f in GRAPH_FIELDS:
             va_, vb = getattr(a, f), getattr(b, f)
@@ -327,8 +312,136 @@ def test_induced_subgraphs_match_jax(tiles, classes):
             if va_ is not None:
                 np.testing.assert_array_equal(np.asarray(va_), vb.numpy(),
                                               err_msg=f"batch {i} {f}")
+                assert np.asarray(va_).dtype == vb.numpy().dtype, f
         for f in ("receiver_band", "tile_t", "tile_b", "num_classes"):
             assert getattr(a, f) == getattr(b, f), f
+
+
+# SyntheticReddit's recipe cut to 3,000 nodes in 6 communities (386,770
+# edges): at a metis_threshold of 8,000 edges the native partitioner is
+# asked for 49 parts and fills 45 of them (at most 78 nodes and one
+# 128-row tile each; every part keeps the tile layout)
+MANY_PARTS = dict(n=3000, communities=6, deg=80, seed=0)
+MANY_PARTS_THRESHOLD = 8000
+
+
+def _many_parts_graph():
+    x, ei, y, (tr, va, te) = jsyn.community_sbm_graph(**MANY_PARTS)
+    return x, ttr.to_undirected(ei), y, tr, va, te
+
+
+def _compacted_native_parts(ei, n, k):
+    """The native partition into ``k`` parts with the unused ones dropped,
+    as both drivers compact it (``prepare_batches``)."""
+    part = jpart.partition_nodes(ei, n, k, method="native")
+    used = np.unique(part)
+    assert used.size < k      # the case: some parts left unused
+    remap = np.full(k, -1, np.int32)
+    remap[used] = np.arange(used.size, dtype=np.int32)
+    return remap[part], int(used.size)
+
+
+@pytest.mark.parametrize("parts,classes,tiles", [
+    pytest.param(3, 1, False, id="1-False"),
+    pytest.param(3, 1, True, id="1-True"),
+    pytest.param(3, 3, False, id="3-False"),
+    pytest.param(3, 3, True, id="3-True"),
+    pytest.param("many", 3, False, id="many_parts-3-False"),
+    pytest.param("many", 3, True, id="many_parts-3-True"),
+])
+def test_induced_subgraphs_match_jax(parts, classes, tiles):
+    if parts == "many":
+        # 45 used parts of 49 asked for, 3 shape classes: the
+        # per-part edge grouping (``part_edge_ids``) at many parts
+        x, ei, y, tr, va, te = _many_parts_graph()
+        k = int(np.ceil(ei.shape[1] / MANY_PARTS_THRESHOLD))
+        part, parts = _compacted_native_parts(ei, len(y), k)
+        assert parts >= 40
+    else:
+        # ~100 nodes per part: one 128-row tile, dense enough that the
+        # tile layout is kept, with slot counts that differ per part
+        x, ei, y, tr, va, te = _sbm()
+        part = jpart.partition_nodes(ei, 300, 3, method="native")
+    jb = jpart.induced_subgraphs(x, ei, y, tr, va, te, part, parts,
+                                 tile_index=tiles, shape_classes=classes)
+    tb = tpart.induced_subgraphs(x, ei, y, tr, va, te, part, parts,
+                                 tile_index=tiles, shape_classes=classes,
+                                 device="cpu")
+    assert len({g.num_edges for g in tb}) == min(classes, 3)
+    if tiles:
+        assert all(g.tile_t == 128 for g in tb)
+        # one slot count per shape class (at many parts two classes may
+        # round up to the same count)
+        slots = {(g.num_edges, g.tile_ls.shape[0]) for g in tb}
+        assert len(slots) == len({g.num_edges for g in tb})
+        if parts == 3:
+            assert len({g.tile_ls.shape[0] for g in tb}) == len(
+                {g.num_edges for g in tb})
+    _same_batches(jb, tb)
+
+
+def test_part_edge_ids_match_the_loop():
+    # the loop it replaces, one pass over every edge per part, with parts
+    # left empty, ids at or past num_parts ignored and a 17-bit key
+    rng = np.random.default_rng(5)
+    for num_parts, top in ((7, 7), (40, 47), (70_000, 70_000)):
+        ps = rng.integers(0, top, 5000).astype(np.int32)
+        pr = np.where(rng.random(5000) < 0.7, ps,
+                      rng.integers(0, top, 5000)).astype(np.int32)
+        got = tpart.part_edge_ids(ps, pr, num_parts)
+        assert len(got) == num_parts
+        for p in range(num_parts):
+            want = np.where((ps == pr) & (ps == p))[0]
+            np.testing.assert_array_equal(got[p], want)
+            assert got[p].dtype == want.dtype
+
+
+def _multigraph(seed):
+    """A directed multigraph with repeated edges, both directions of some,
+    self-loops and a few edges on isolated ids far above the rest."""
+    rng = np.random.default_rng(seed)
+    s = rng.integers(0, 60, 900)
+    r = rng.integers(0, 60, 900)
+    dup = rng.integers(0, 900, 300)
+    s = np.concatenate([s, s[dup], r[:50], np.arange(10), [5000, 77, 4999]])
+    r = np.concatenate([r, r[dup], s[:50], np.arange(10), [77, 5000, 4999]])
+    return np.stack([s, r]).astype(np.int32)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_to_undirected_matches_jax(seed):
+    from sgs_gnn_tpu.data import transforms as jtr
+    ei = _multigraph(seed)
+    for edges in (ei, ei.astype(np.int64), ei[:, ::-1], ei[:, :0]):
+        want = jtr.to_undirected(edges)
+        got = ttr.to_undirected(edges)
+        np.testing.assert_array_equal(got, want)
+        assert got.dtype == want.dtype == np.int32
+        assert got.shape == want.shape
+    assert ttr.is_undirected(ttr.to_undirected(ei), 5001)
+
+
+def test_prepare_batches_many_parts_match_jax():
+    """Both drivers' ``prepare_batches`` on the many-part graph: 49 parts
+    asked for, 45 used (compacted), 3 shape classes, the tile index."""
+    from sgs_gnn_tpu.run import driver as jdriver
+    from sgs_gnn_tpu_torch.run import driver as tdriver
+    x, ei, y, tr, va, te = _many_parts_graph()
+    kw = dict(mode="learned", pipeline="hybrid", tile_index="on",
+              metis_threshold=MANY_PARTS_THRESHOLD, shape_classes=3)
+    prob = jpriors.degree_prior(ei[0], ei[1], len(y))
+    common = dict(name="SyntheticReddit4000", x=x, edge_index=ei, y=y,
+                  train_mask=tr, val_mask=va, test_mask=te,
+                  num_classes=int(y.max()) + 1, He=0.0)
+    jb, jq = jdriver.prepare_batches(
+        JConfig(**kw), jreg.HostDataset(prob=prob, **common))
+    tb, tq, method = tdriver.prepare_batches(
+        Config(**kw), treg.HostDataset(prob=prob, **common), "cpu")
+    assert method == "native" and tq == jq == 1600
+    assert len(tb) >= 40
+    assert len({g.num_edges for g in tb}) == 3
+    assert all(g.tile_t == 128 for g in tb)
+    _same_batches(jb, tb)
 
 
 def test_unify_tile_shapes_declined_part_drops_tiles():
