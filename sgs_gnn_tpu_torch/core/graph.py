@@ -7,7 +7,10 @@ edges are self-loops on ``pad_edge_node`` with ``edge_mask=False`` and zero
 prior. ``Graph.build`` takes host numpy arrays and applies the same padding,
 stable receiver sort, ``receiver_band`` and packed ``edge_aux`` table as the
 JAX ``Graph.build``; with ``tile_index=True`` it also fills the tile-pair
-index of the tile score kernel (``ops/score_tiles.py``).
+index of the tile score kernel (``ops/score_tiles.py``). With
+``core/spans`` on, the tile index is the span ``data.tiles`` and the copy of
+the arrays to the device ``data.to_device``, its bytes counted in
+``data.bytes_to_device``.
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from . import spans
 from .device import resolve_device
 from ..ops.scatter import required_band
 from ..ops.score_tiles import build_tile_index
@@ -129,27 +133,33 @@ class Graph:
         edge_aux = np.stack([s_, r_, flags], axis=1).astype(np.int32)
 
         def t(a):
-            return torch.as_tensor(np.ascontiguousarray(a), device=dev)
+            a = np.ascontiguousarray(a)
+            spans.count("data.bytes_to_device", a.nbytes)
+            return torch.as_tensor(a, device=dev)
 
-        tiles = {}
+        tiles, tile_ints = {}, {}
         if tile_index and edge_index.shape[1]:
-            ti = build_tile_index(s_, r_, n, t=tile_t, b=tile_b)
-            if ti is not None:
-                tmask = ti.valid & edge_mask[ti.perm]
-                tile_aux = edge_aux[ti.perm]
-                tile_aux[:, 2] = (tile_aux[:, 2] & 3) | \
-                    (tmask.astype(np.int32) << 2)
-                tiles = dict(
-                    tile_ls=t(ti.ls), tile_lr=t(ti.lr), tile_su=t(ti.su),
-                    tile_rv=t(ti.rv), tile_perm=t(ti.perm),
-                    tile_prob=t(np.where(ti.valid, prob[ti.perm],
-                                         0.0).astype(np.float32)),
-                    tile_mask=t(tmask), tile_aux=t(tile_aux),
-                    tile_t=ti.t, tile_b=ti.b)
+            with spans.span("data.tiles"):
+                ti = build_tile_index(s_, r_, n, t=tile_t, b=tile_b)
+                if ti is not None:
+                    tmask = ti.valid & edge_mask[ti.perm]
+                    tile_aux = edge_aux[ti.perm]
+                    tile_aux[:, 2] = (tile_aux[:, 2] & 3) | \
+                        (tmask.astype(np.int32) << 2)
+                    tiles = dict(
+                        tile_ls=ti.ls, tile_lr=ti.lr, tile_su=ti.su,
+                        tile_rv=ti.rv, tile_perm=ti.perm,
+                        tile_prob=np.where(ti.valid, prob[ti.perm],
+                                           0.0).astype(np.float32),
+                        tile_mask=tmask, tile_aux=tile_aux)
+                    tile_ints = dict(tile_t=ti.t, tile_b=ti.b)
 
-        return Graph(
-            x=t(x), senders=t(s_), receivers=t(r_), y=t(y),
-            train_mask=t(train_mask), val_mask=t(val_mask),
-            test_mask=t(test_mask), prob=t(prob), edge_mask=t(edge_mask),
-            edge_aux=t(edge_aux), num_classes=int(num_classes),
-            receiver_band=int(receiver_band), **tiles)
+        with spans.span("data.to_device"):
+            arrays = dict(**tiles, x=x, senders=s_, receivers=r_, y=y,
+                          train_mask=train_mask, val_mask=val_mask,
+                          test_mask=test_mask, prob=prob,
+                          edge_mask=edge_mask, edge_aux=edge_aux)
+            tensors = {k: t(v) for k, v in arrays.items()}
+        return Graph(num_classes=int(num_classes),
+                     receiver_band=int(receiver_band), **tensors,
+                     **tile_ints)

@@ -33,6 +33,13 @@ every replay adds the tally back (:func:`capture`, :class:`Captured`).
 The counters then read as they would after the same eager calls. What a
 kernel counts on the card (K1's slab chunks per mode) the replay counts
 itself.
+
+With ``core/spans`` on, :class:`Graphs` runs the eager call in the span
+``graph.eager``, the capture in ``graph.capture`` and a replay in
+``<name>.replay`` (``name``: ``step``, ``eval`` or ``serve``), counts
+``graph.eager_runs``, ``graph.captures`` and ``graph.replays``, and names
+the stamps of its bodies by the phase ``name``; :meth:`StaticGraph.load`
+counts the bytes it copies in ``graph.load_bytes``.
 """
 from __future__ import annotations
 
@@ -44,6 +51,7 @@ from typing import Any, Callable, Dict, Hashable, Optional, Sequence
 import torch
 
 from ..ops import _build
+from . import spans
 from .graph import Graph
 
 
@@ -79,6 +87,7 @@ class StaticGraph:
         self.key = shape_key(g)
         self.graph = dataclasses.replace(
             g, **{k: torch.empty_like(v) for k, v in graph_tensors(g).items()})
+        self.nbytes = sum(v.nbytes for v in graph_tensors(g).values())
 
     def load(self, g: Graph) -> Graph:
         """Copy ``g``'s tensors into the buffers (device copies; nothing
@@ -89,6 +98,7 @@ class StaticGraph:
         bufs = self.graph
         for k, v in graph_tensors(g).items():
             getattr(bufs, k).copy_(v)
+        spans.count("graph.load_bytes", self.nbytes)
         return bufs
 
 
@@ -187,11 +197,15 @@ class Graphs:
     read and written without touching the device) is copied into it before
     the run and back after, so the caller's generator advances as the
     eager call advances it, and a new generator object on every call
-    replays the same graph."""
+    replays the same graph. ``name`` names the replays' span and the
+    bodies' stamps (module docstring)."""
 
-    def __init__(self, capture_fn: Optional[Callable[..., Captured]] = None):
+    def __init__(self, capture_fn: Optional[Callable[..., Captured]] = None,
+                 name: str = "graph"):
         self.by_key: Dict[Hashable, Captured] = {}
         self._capture = capture if capture_fn is None else capture_fn
+        self.name = name
+        self._replay_span = f"{name}.replay"
 
     def run(self, key: Hashable,
             body: Callable[[Optional[torch.Generator]], Any], pool,
@@ -205,13 +219,23 @@ class Graphs:
             own = (torch.Generator(device=generator.device) if cap is None
                    else cap.generators[0])
             own.set_state(generator.get_state())
-        out = body(own) if cap is None else cap.replay()
+        with spans.phase(self.name):
+            if cap is None:
+                with spans.span("graph.eager"):
+                    out = body(own)
+                spans.count("graph.eager_runs")
+            else:
+                with spans.span(self._replay_span):
+                    out = cap.replay()
+                spans.count("graph.replays")
         if own is not None:
             generator.set_state(own.get_state())
         if cap is None:
-            self.by_key[key] = self._capture(
-                functools.partial(body, own), pool=pool,
-                generators=() if own is None else (own,))
+            with spans.phase(self.name), spans.span("graph.capture"):
+                self.by_key[key] = self._capture(
+                    functools.partial(body, own), pool=pool,
+                    generators=() if own is None else (own,))
+            spans.count("graph.captures")
         return out
 
     @property

@@ -13,6 +13,12 @@ whole graph. No new kernel: K3 scores, K1 and K2 run the backbone.
 ``make_scan_eval_step`` runs the eval of every batch as replays of CUDA
 graphs, one per (shape class, small flag), the twin of the JAX
 ``lax.scan`` eval; the sums stay on the device.
+
+With ``core/spans``' device stamps on, an eval step stamps the end of the
+scorer, of each draw (``sampler``) and backbone forward, and of the F1s
+(``f1``); the graphed eval's host spans are ``eval`` per call and
+``eval.batch`` per batch (``eval.slot``, ``eval.load`` and the replay
+inside), and ``aggregate_eval``'s read-back is ``eval.readback``.
 """
 from __future__ import annotations
 
@@ -21,6 +27,7 @@ from typing import Dict, List, Optional
 
 import torch
 
+from ..core import spans
 from ..core.config import Config
 from ..core.graph import Graph
 from ..core.graphed import Graphs, ShapeClasses
@@ -46,9 +53,11 @@ def make_eval_step(cfg: Config, model, q: int, force_small: bool = False):
         total = None
         for _ in range(n_draws):
             idx, w = draw()
+            spans.stamp("sampler", g.x.device)
             out = model(g.x, g.senders[idx], g.receivers[idx], w,
                         deterministic=True)
             total = out if total is None else total + out
+            spans.stamp("backbone", g.x.device)
         return total / n_draws
 
     @torch.no_grad()
@@ -57,9 +66,11 @@ def make_eval_step(cfg: Config, model, q: int, force_small: bool = False):
         if mode == "full" or force_small or g.num_edges <= q:
             logits = model(g.x, g.senders, g.receivers, None,
                            deterministic=True)
+            spans.stamp("backbone", g.x.device)
         elif mode == "learned":
             probs = model.score_edges(g.x, g.senders, g.receivers, g.senders,
                                       g.receivers, True)
+            spans.stamp("scorer", g.x.device)
             logits = ensemble(g, lambda: sample_edges(
                 generator, probs, g.prob, q, cfg.degree_bias_coef,
                 istest=True, edge_mask=g.edge_mask))
@@ -75,6 +86,7 @@ def make_eval_step(cfg: Config, model, q: int, force_small: bool = False):
             cnt = torch.sum(mask.float())
             res[f"{split}_f1_weighted"] = micro_f1(logits, g.y, mask) * cnt
             res[f"{split}_count"] = cnt
+        spans.stamp("f1", g.x.device)
         return res
 
     return eval_step
@@ -86,10 +98,11 @@ class ScanEvalStep:
     def __init__(self, steps, classes: Optional[ShapeClasses] = None):
         self.steps = steps
         self.classes = ShapeClasses() if classes is None else classes
-        self.graphs = Graphs()
+        self.graphs = Graphs(name="eval")
         self.acc = None          # (6,) in KEYS order
 
     def _body(self, step, g: Graph, generator: torch.Generator):
+        spans.stamp("between", g.x.device)
         res = step(g, generator)
         self.acc.add_(torch.stack([res[k] for k in KEYS]))
 
@@ -99,15 +112,21 @@ class ScanEvalStep:
         if self.acc is None:
             self.acc = torch.zeros(len(KEYS), device=dev)
         self.acc.zero_()
-        for bi, g in enumerate(batches):
-            generator.manual_seed(stream_seed)
-            bufs, pool = self.classes.slot(g)
-            small = int(small_flags[bi])
-            self.graphs.run((bufs.key, small),
-                            functools.partial(self._body, self.steps[small],
-                                              bufs.load(g)),
-                            pool, generator)
-        return dict(zip(KEYS, self.acc.clone().unbind()))
+        with spans.span("eval"):
+            for bi, g in enumerate(batches):
+                with spans.span("eval.batch", bi):
+                    generator.manual_seed(stream_seed)
+                    with spans.span("eval.slot"):
+                        bufs, pool = self.classes.slot(g)
+                    small = int(small_flags[bi])
+                    with spans.span("eval.load"):
+                        static = bufs.load(g)
+                    self.graphs.run((bufs.key, small),
+                                    functools.partial(self._body,
+                                                      self.steps[small],
+                                                      static),
+                                    pool, generator)
+            return dict(zip(KEYS, self.acc.clone().unbind()))
 
 
 def make_scan_eval_step(cfg: Config, model, q: int,
@@ -136,8 +155,9 @@ def aggregate_eval(batch_results: List[Dict[str, torch.Tensor]]
                    ) -> Dict[str, float]:
     """Weighted-mean F1 across partition batches; one transfer to the host
     for all of them."""
-    table = torch.stack([torch.stack([r[k].float() for k in KEYS])
-                         for r in batch_results]).double().sum(0).tolist()
+    with spans.span("eval.readback"):
+        table = torch.stack([torch.stack([r[k].float() for k in KEYS])
+                             for r in batch_results]).double().sum(0).tolist()
     sums = dict(zip(KEYS, table))
     return {f"{s}_f1": (sums[f"{s}_f1_weighted"] / sums[f"{s}_count"]
                         if sums[f"{s}_count"] > 0 else 0.0)

@@ -20,7 +20,12 @@ wrapper dispatches one kernel name to several routes (K1: "slab" or
 "tensor_cores" for bf16 h, "cuda_cores" for f32; K8: "tiles" or "gather",
 by ``ops/spmm.py`` ``spmm_plan``). What a kernel picks from
 the data, not the host, it counts on the card itself (K1's slab chunks per
-mode: ``ops/scatter.py`` ``slab_chunk_modes``).
+mode: ``ops/scatter.py`` ``slab_chunk_modes``). Both counters are
+``core/spans.py``'s ``LAUNCHES`` and ``ROUTES`` (the same objects). With
+``core/spans`` on, the compile is the span ``kernels.build`` (counted in
+``kernels.builds``) and the library's load the span ``kernels.load``.
+``csrc/stamp.cu`` is ``core/spans.py``'s device stamp, launched there and
+not counted here.
 """
 from __future__ import annotations
 
@@ -35,15 +40,18 @@ from pathlib import Path
 
 import torch
 
+from ..core import spans
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("scatter.cu", "segment_sum.cu", "score_sampled.cu",
-           "score_tiles.cu", "scatter_sorted.cu", "spmm.cu")
+           "score_tiles.cu", "scatter_sorted.cu", "spmm.cu", "stamp.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-LAUNCHES: collections.Counter = collections.Counter()
-ROUTES: collections.Counter = collections.Counter()
+# the counters live in core/spans.py (the same objects)
+LAUNCHES: collections.Counter = spans.LAUNCHES
+ROUTES: collections.Counter = spans.ROUTES
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -66,6 +74,7 @@ _SIGNATURES = {
     "sgs_dropout_bits": [_P, _P, _P, _L, _P],
     "sgs_scatter_add_sorted": [_P, _I, _P, _P, _L, _I, _I, _I, _I, _I, _P],
     "sgs_spmm_fused": [_P, _P, _P, _P, _I, _P, _L, _I, _I, _I, _I, _P, _P],
+    "sgs_stamp": [_P, _P, _I, _P],
 }
 
 
@@ -93,6 +102,13 @@ def build() -> Path:
     lib = BUILD_DIR / f"libsgs_kernels_{source_hash()}.so"
     if lib.exists():
         return lib
+    with spans.span("kernels.build"):
+        _compile(lib)
+    spans.count("kernels.builds")
+    return lib
+
+
+def _compile(lib: Path) -> None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     tag = f"{os.getpid()}"
@@ -120,12 +136,13 @@ def build() -> Path:
         raise RuntimeError(f"nvcc link failed:\n{link.stdout}{link.stderr}")
     Path(f"{lib}.log").write_text("\n".join(log))
     os.replace(tmp, lib)     # atomic: a concurrent build never sees half a file
-    return lib
 
 
 @functools.lru_cache(maxsize=1)
 def library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build()))
+    path = build()
+    with spans.span("kernels.load"):
+        lib = ctypes.CDLL(str(path))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes

@@ -43,7 +43,10 @@ The diagnostics, as in the JAX driver: ``debug_checks`` validates every
 batch after preparation (``utils/debug.py``); ``gpu_profile`` profiles
 the first batch with train nodes after each epoch's updates, eagerly, in
 the reference's four segments (``utils/profiler.py``; a ``[gpu-profile]``
-line per epoch); ``plot_curve`` saves each run's F1 curves to
+line per epoch), and turns on the port's own spans, counters and (on a
+card) device stamps (``core/spans.py``) for the whole experiment, whose
+tables close the log (``[spans]``, ``[stamps]``, ``[counters]`` lines:
+self time per span, device time per stamped layer); ``plot_curve`` saves each run's F1 curves to
 ``results_dir`` (``viz/curves.py``).
 
 The multi-rank paths run one process per rank under ``torch.distributed``
@@ -74,7 +77,7 @@ import torch
 
 from ..core.config import Config
 from ..core.device import resolve_device
-from ..core import graphed
+from ..core import graphed, spans
 from ..core.graph import Graph
 from ..data.partition import (induced_subgraphs, partition_nodes,
                               resolve_partitioner)
@@ -143,6 +146,11 @@ def prepare_batches(cfg: Config, ds: HostDataset, device="cuda",
     'rcm'), or None for one unpartitioned batch. Under ``data_parallel``
     unused partitions are kept (the super-steps need W of them each; an
     empty one trains nothing) and every batch pads to one shape."""
+    with spans.span("data.prepare"):
+        return _prepare_batches(cfg, ds, device, build_device)
+
+
+def _prepare_batches(cfg: Config, ds: HostDataset, device, build_device):
     e = ds.num_edges
     tiles = want_tile_index(cfg, device)
     device = build_device or device
@@ -154,9 +162,10 @@ def prepare_batches(cfg: Config, ds: HostDataset, device="cuda",
                             tile_index=tiles, device=device)], q, None
     num_parts = cfg.num_partitions or int(np.ceil(e / cfg.metis_threshold))
     q = int(cfg.metis_threshold * cfg.sample_perc)
-    method = resolve_partitioner("native")
-    part = partition_nodes(ds.edge_index, ds.num_nodes, num_parts,
-                           method=method)
+    with spans.span("data.partition"):
+        method = resolve_partitioner("native")
+        part = partition_nodes(ds.edge_index, ds.num_nodes, num_parts,
+                               method=method)
     parallel = cfg.data_parallel == "on"
     # the degree-capped packer may leave parts unused (num_parts is a
     # ceiling, like METIS's nparts): drop them, no empty padded batches
@@ -166,12 +175,13 @@ def prepare_batches(cfg: Config, ds: HostDataset, device="cuda",
         remap[used] = np.arange(used.size, dtype=np.int32)
         part = remap[part]
         num_parts = int(used.size)
-    batches = induced_subgraphs(ds.x, ds.edge_index, ds.y, ds.train_mask,
-                                ds.val_mask, ds.test_mask, part, num_parts,
-                                tile_index=tiles,
-                                shape_classes=1 if parallel
-                                else cfg.shape_classes,
-                                device=device)
+    with spans.span("data.induce"):
+        batches = induced_subgraphs(ds.x, ds.edge_index, ds.y,
+                                    ds.train_mask, ds.val_mask, ds.test_mask,
+                                    part, num_parts, tile_index=tiles,
+                                    shape_classes=1 if parallel
+                                    else cfg.shape_classes,
+                                    device=device)
     return batches, q, method
 
 
@@ -336,6 +346,19 @@ def run_experiment(cfg: Config, ds: Optional[HostDataset] = None,
                    log_fn=print, device="cuda") -> List[RunResult]:
     cfg.validate()
     dev = resolve_device(device)
+    # --gpu_profile turns the port's spans on (a caller may have already)
+    profiling = cfg.gpu_profile and not spans.ON
+    if profiling:
+        spans.reset()
+        spans.enable(device_stamps=graphed.runs_graphs(dev))
+    try:
+        return _route_experiment(cfg, ds, log_fn, dev)
+    finally:
+        if profiling:
+            spans.disable()
+
+
+def _route_experiment(cfg: Config, ds: Optional[HostDataset], log_fn, dev):
     if not (cfg.multihost or cfg.halo or cfg.data_parallel == "on"):
         return _run_experiment(cfg, ds, log_fn, dev, None)
     # the process group (parallel/distributed.py); a rank on a card binds
@@ -561,10 +584,12 @@ def _run_loop(cfg: Config, ds: HostDataset, dev, log_fn, route: _Route,
 
         for epoch in range(start_epoch, cfg.epochs):
             t0 = time.perf_counter()
-            loss_acc, cond_acc, temp, n_steps, n_updates = \
-                route.train_epoch(steps, epoch, gen, run)
+            with spans.span("run.epoch", epoch):
+                loss_acc, cond_acc, temp, n_steps, n_updates = \
+                    route.train_epoch(steps, epoch, gen, run)
             res.total_updates += n_updates
-            loss_sum, cond = torch.stack([loss_acc, cond_acc]).tolist()
+            with spans.span("run.readback", epoch):
+                loss_sum, cond = torch.stack([loss_acc, cond_acc]).tolist()
             loss = loss_sum / n_steps
             res.conditional_updates += int(cond)
             res.losses.append(loss)
@@ -580,8 +605,10 @@ def _run_loop(cfg: Config, ds: HostDataset, dev, log_fn, route: _Route,
 
             if cfg.eval:
                 t1 = time.perf_counter()
-                agg = aggregate_eval([route.evaluate(
-                    evals, gen, batch_seed(cfg.seed, run, 2**30 + epoch))])
+                with spans.span("run.eval", epoch):
+                    agg = aggregate_eval([route.evaluate(
+                        evals, gen, batch_seed(cfg.seed, run,
+                                               2**30 + epoch))])
                 res.eval_times.append(time.perf_counter() - t1)
                 if cfg.stats and cfg.log and epoch < 16:
                     log_fn(f"[eval-time] epoch={epoch} "
@@ -595,8 +622,9 @@ def _run_loop(cfg: Config, ds: HostDataset, dev, log_fn, route: _Route,
                     res.best_val_f1 = va_f1
                     res.test_at_best_val = te_f1
                     # a copy on the device: no host transfer per improvement
-                    best_state = {k: v.detach().clone()
-                                  for k, v in model.state_dict().items()}
+                    with spans.span("run.best_model", epoch):
+                        best_state = {k: v.detach().clone()
+                                      for k, v in model.state_dict().items()}
                     best_temp = temp
                     if cfg.log:
                         log_fn(f"*Epoch {epoch}, model saved with Loss: "
@@ -610,20 +638,22 @@ def _run_loop(cfg: Config, ds: HostDataset, dev, log_fn, route: _Route,
 
             if cfg.checkpoint_every and \
                     (epoch + 1) % cfg.checkpoint_every == 0:
-                if is_primary():
-                    save_checkpoint(ckpt_path, TrainState(
-                        params=model.state_dict(),
-                        opt_state=opt.state_dict(), epoch=epoch,
-                        best_val_f1=res.best_val_f1,
-                        test_at_best_val=res.test_at_best_val,
-                        best_temperature=best_temp, losses=res.losses,
-                        best_params=best_state,
-                        best_test_f1=res.best_test_f1,
-                        train_curve=res.train_curve,
-                        val_curve=res.val_curve, test_curve=res.test_curve))
-                if torch.distributed.is_initialized():
-                    # no rank runs ahead of a checkpoint being written
-                    torch.distributed.barrier()
+                with spans.span("run.checkpoint", epoch):
+                    if is_primary():
+                        save_checkpoint(ckpt_path, TrainState(
+                            params=model.state_dict(),
+                            opt_state=opt.state_dict(), epoch=epoch,
+                            best_val_f1=res.best_val_f1,
+                            test_at_best_val=res.test_at_best_val,
+                            best_temperature=best_temp, losses=res.losses,
+                            best_params=best_state,
+                            best_test_f1=res.best_test_f1,
+                            train_curve=res.train_curve,
+                            val_curve=res.val_curve,
+                            test_curve=res.test_curve))
+                    if torch.distributed.is_initialized():
+                        # no rank runs ahead of a checkpoint being written
+                        torch.distributed.barrier()
 
             if epoch >= 5 and float(np.std(res.losses[-5:])) < \
                     cfg.convergence:
@@ -638,9 +668,11 @@ def _run_loop(cfg: Config, ds: HostDataset, dev, log_fn, route: _Route,
         # reload the best-val parameters for the final ensemble eval
         # (main.py:264-270)
         if best_state is not None:
-            model.load_state_dict(best_state)
-        agg = aggregate_eval([route.evaluate(
-            evals, gen, batch_seed(cfg.seed, run, 2**31 - 1))])
+            with spans.span("run.best_model"):
+                model.load_state_dict(best_state)
+        with spans.span("run.eval"):
+            agg = aggregate_eval([route.evaluate(
+                evals, gen, batch_seed(cfg.seed, run, 2**31 - 1))])
         res.final_train_f1 = agg["train_f1"]
         res.final_val_f1 = agg["val_f1"]
         res.final_test_f1 = agg["test_f1"]
@@ -690,6 +722,11 @@ def _run_loop(cfg: Config, ds: HostDataset, dev, log_fn, route: _Route,
         results.append(res)
 
     _summary(cfg, results, log_fn)
+    if cfg.gpu_profile and spans.ON:
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        for line in spans.report_lines(spans.collect()):
+            log_fn(line)
     return results
 
 

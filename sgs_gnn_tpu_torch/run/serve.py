@@ -19,17 +19,24 @@ same amount (a new generator on every call replays the same graph), and
 the outputs are copies the next call does not overwrite. The graphs read the model's parameters where they
 are: change them in place (``load_state_dict`` does). The returned
 function's ``eager`` attribute is the same call without graphs.
+
+With ``core/spans`` on, a graphed call is the span ``serve.request`` (id:
+the call's number) with ``serve.slot``, ``serve.load``, the replay
+(``serve.replay``, or the eager run and capture) and ``serve.clone``
+inside; the device stamps mark the end of the scorer and of each draw
+(``sampler``) and backbone forward.
 """
 from __future__ import annotations
 
 import functools
+import itertools
 from typing import NamedTuple
 
 import torch
 
 from ..core.config import Config
 from ..core.graph import Graph
-from ..core import graphed
+from ..core import graphed, spans
 from ..sparsify.sampling import sample_edges
 
 
@@ -50,20 +57,26 @@ def _graphed(fn):
     """``fn(graph, generator)``, replayed from CUDA graphs on a CUDA
     device (module docstring); ``.graphs`` holds them, ``.eager`` is
     ``fn``."""
-    classes, graphs = graphed.ShapeClasses(), graphed.Graphs()
+    classes, graphs = graphed.ShapeClasses(), graphed.Graphs(name="serve")
+    calls = itertools.count()
 
     def call(g: Graph, generator: torch.Generator):
         if not graphed.runs_graphs(g.x.device):
             return fn(g, generator)
-        bufs, pool = classes.slot(g)
-        replay = bufs.key in graphs.by_key
-        out = graphs.run(bufs.key, functools.partial(fn, bufs.load(g)), pool,
-                         generator)
-        if replay:     # the static outputs: the caller gets copies
-            clones = [t.clone() for t in out]
-            out = (type(out)(*clones) if hasattr(out, "_fields")
-                   else tuple(clones))
-        return out
+        with spans.span("serve.request", next(calls)):
+            with spans.span("serve.slot"):
+                bufs, pool = classes.slot(g)
+            replay = bufs.key in graphs.by_key
+            with spans.span("serve.load"):
+                static = bufs.load(g)
+            out = graphs.run(bufs.key, functools.partial(fn, static), pool,
+                             generator)
+            if replay:     # the static outputs: the caller gets copies
+                with spans.span("serve.clone"):
+                    clones = [t.clone() for t in out]
+                    out = (type(out)(*clones) if hasattr(out, "_fields")
+                           else tuple(clones))
+            return out
 
     call.graphs, call.eager = graphs, fn
     return call
@@ -74,10 +87,13 @@ def make_sparsifier(cfg: Config, model, q: int):
 
     @torch.no_grad()
     def sparsify(g: Graph, generator: torch.Generator) -> SparsifiedGraph:
+        spans.stamp("between", g.x.device)
         probs = _score_all(model, g)
+        spans.stamp("scorer", g.x.device)
         idx, w = sample_edges(generator, probs, g.prob, q,
                               cfg.degree_bias_coef, istest=True,
                               edge_mask=g.edge_mask)
+        spans.stamp("sampler", g.x.device)
         return SparsifiedGraph(senders=g.senders[idx],
                                receivers=g.receivers[idx], weights=w,
                                edge_ids=idx, probs=probs)
@@ -93,18 +109,23 @@ def make_predictor(cfg: Config, model, q: int):
 
     @torch.no_grad()
     def predict(g: Graph, generator: torch.Generator):
+        spans.stamp("between", g.x.device)
         if g.num_edges <= q or cfg.mode == "full":
             logits = model(g.x, g.senders, g.receivers, deterministic=True)
+            spans.stamp("backbone", g.x.device)
             return logits, torch.argmax(logits, dim=-1)
         probs = _score_all(model, g)
+        spans.stamp("scorer", g.x.device)
         total = None
         for _ in range(n_draws):
             idx, w = sample_edges(generator, probs, g.prob, q,
                                   cfg.degree_bias_coef, istest=True,
                                   edge_mask=g.edge_mask)
+            spans.stamp("sampler", g.x.device)
             out = model(g.x, g.senders[idx], g.receivers[idx], w,
                         deterministic=True)
             total = out if total is None else total + out
+            spans.stamp("backbone", g.x.device)
         logits = total / n_draws
         return logits, torch.argmax(logits, dim=-1)
 

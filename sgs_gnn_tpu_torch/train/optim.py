@@ -25,6 +25,9 @@ replays the update keeps reading and writing the optimizer's tensors
 (``train/pipelines.py`` ``make_scan_epoch_step``). A group's moments are
 allocated at its first step, outside any capture: graphs are captured
 after an eager step of the same case.
+
+With ``core/spans``' device stamps on, each ``step_*`` ends with the stamp
+``optimizer``: the device time of the whole update.
 """
 from __future__ import annotations
 
@@ -32,6 +35,8 @@ import dataclasses
 from typing import Callable, Dict, List, Optional
 
 import torch
+
+from ..core import spans
 
 
 def gnn_filter_for(gnn: str) -> Callable[[str], bool]:
@@ -170,14 +175,17 @@ class DualOptimizer:
         upd_e = self._group_update("edge", grads, update_edge)
         upd_g = self._group_update("gnn", grads)
         self._apply(upd_e, upd_g)
+        spans.stamp("optimizer", self.params[0].device)
 
     @torch.no_grad()
     def step_gnn_only(self, grads) -> None:
         """Small-batch path (E <= q): only the gnn group steps."""
         self._apply(self._group_update("gnn", grads))
+        spans.stamp("optimizer", self.params[0].device)
 
     @torch.no_grad()
     def step_all(self, grads) -> None:
         """Baseline modes: the third group, with weight decay."""
         self._apply(self._group_update("all", grads,
                                        weight_decay=self.weight_decay))
+        spans.stamp("optimizer", self.params[0].device)

@@ -58,6 +58,18 @@ and E <= q take the whole graph in every mode.
 
 ``make_scan_epoch_step`` runs an epoch's steps as replays of CUDA graphs
 captured per (shape class, case), the twin of the JAX ``lax.scan`` epoch.
+
+With ``core/spans``' device stamps on, a step stamps the end of each
+layer's forward (``sampler``, ``scorer``, ``backbone``, ``loss``), of its
+backward and of the update (``optimizer``, ``train/optim.py``). The
+backward is split once, where the scorer's weights enter the backbone
+(``spans.boundary``): the time from the backward's start to there (the
+losses' and the backbone's backward) is ``backbone``, the rest (the
+scorer's head and encoder, the sampler's straight-through weights) is
+``scorer``; a backbone parameter's gradient that autograd computes after
+the edge weights' is credited to ``scorer``. The graphed epoch's host
+spans: ``step`` per batch (id: epoch, batch), with ``step.slot``,
+``step.load`` and the replay, capture or eager run inside.
 """
 from __future__ import annotations
 
@@ -66,6 +78,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from ..core import spans
 from ..core.config import Config
 from ..core.graph import Graph
 from ..core.graphed import Graphs, ShapeClasses
@@ -116,6 +129,7 @@ def _rescore(cfg: Config, model, q: int, g: Graph, generator, prop_s,
     sampled edges' probabilities, so the pass over every edge runs detached
     and the grad-enabled head runs on the q winners only. Returns the
     winners' (weights, senders, receivers, valid, reg1 flags)."""
+    dev = g.x.device
     h = model.encode_scorer(g.x, prop_s, prop_r, deterministic=False,
                             generator=generator)
     if g.tile_t:
@@ -123,6 +137,7 @@ def _rescore(cfg: Config, model, q: int, g: Graph, generator, prop_s,
         probs_tiles = model.score_tiles_from_embeddings(
             h.detach(), g.tile_ls, g.tile_lr, g.tile_su, g.tile_rv,
             g.tile_t, g.tile_b, deterministic=False, seed=seed)
+        spans.stamp("scorer", dev)
         idx_t, _ = sample_edges(generator, probs_tiles, g.tile_prob, q,
                                 cfg.degree_bias_coef, edge_mask=g.tile_mask)
         sorted_side = ""
@@ -138,11 +153,14 @@ def _rescore(cfg: Config, model, q: int, g: Graph, generator, prop_s,
             probs_sample = model.score_from_embeddings(
                 h.detach(), g.senders, g.receivers, deterministic=False,
                 generator=generator)
+        spans.stamp("scorer", dev)
         idx, sorted_side = _sample_sorted(cfg, g, generator, probs_sample, q)
         sel = _aux_columns(g.edge_aux[idx])
+    spans.stamp("sampler", dev)
     weights = model.score_from_embeddings(
         h, sel[0], sel[1], deterministic=False, sorted_side=sorted_side,
         generator=generator)
+    spans.stamp("scorer", dev)
     return (weights,) + sel
 
 
@@ -165,6 +183,7 @@ def make_learned_loss(cfg: Config, model, q: int):
                 rand_s, rand_r = dense_adj(rand_s, rand_r, n,
                                            valid=rand_valid), None
             prop_s, prop_r = rand_s, rand_r
+            spans.stamp("sampler", dev)
         else:
             rand_s = rand_r = None
             prop_s, prop_r = g.senders, g.receivers
@@ -177,9 +196,11 @@ def make_learned_loss(cfg: Config, model, q: int):
                 probs_full = model.score_edges(
                     g.x, prop_s, prop_r, g.senders, g.receivers,
                     deterministic=False, generator=generator)
+            spans.stamp("scorer", dev)
             idx, sorted_side = _sample_sorted(cfg, g, generator, probs_full,
                                               q)
             s_s, s_r, sel_valid, reg1_flags = _aux_columns(g.edge_aux[idx])
+            spans.stamp("sampler", dev)
             # densified without validity, as in JAX: the padding
             # selections' self-loops on the pad node count
             prop = ((dense_adj(s_s, s_r, n), None) if dense
@@ -187,6 +208,7 @@ def make_learned_loss(cfg: Config, model, q: int):
             weights = model.score_edges(
                 g.x, *prop, s_s, s_r, deterministic=False,
                 score_sorted_side=sorted_side, generator=generator)
+            spans.stamp("scorer", dev)
         elif pipeline == "straight_through":
             # one grad-enabled pass over every edge; the straight-through
             # weights carry the gradient through the sampling distribution
@@ -194,10 +216,12 @@ def make_learned_loss(cfg: Config, model, q: int):
                 g.x, prop_s, prop_r, g.senders, g.receivers,
                 deterministic=False, score_receiver_band=g.receiver_band,
                 generator=generator)
+            spans.stamp("scorer", dev)
             idx, weights = sample_edges(generator, probs_full, g.prob, q,
                                         cfg.degree_bias_coef,
                                         edge_mask=g.edge_mask)
             s_s, s_r, sel_valid, reg1_flags = _aux_columns(g.edge_aux[idx])
+            spans.stamp("sampler", dev)
         elif cfg.hybrid_rescore:
             weights, s_s, s_r, sel_valid, reg1_flags = _rescore(
                 cfg, model, q, g, generator, prop_s, prop_r)
@@ -209,16 +233,21 @@ def make_learned_loss(cfg: Config, model, q: int):
                 g.x, prop_s, prop_r, g.senders, g.receivers,
                 deterministic=False, use_remat=cfg.hybrid_checkpoint,
                 score_receiver_band=g.receiver_band, generator=generator)
+            spans.stamp("scorer", dev)
             idx, _ = sample_edges(generator, probs_full.detach(), g.prob, q,
                                   cfg.degree_bias_coef, edge_mask=g.edge_mask)
             s_s, s_r, sel_valid, reg1_flags = _aux_columns(g.edge_aux[idx])
             weights = probs_full[idx]
+            spans.stamp("sampler", dev)
 
-        # padding selections (fewer valid edges than q) get zero weight
-        weights = torch.where(sel_valid, weights, 0.0)
+        # padding selections (fewer valid edges than q) get zero weight;
+        # the backward's split between the backbone and the scorer
+        weights = spans.boundary(torch.where(sel_valid, weights, 0.0),
+                                 "backbone")
         probs_for_loss = weights
 
         learned_out = _apply_gnn(model, g.x, s_s, s_r, weights, generator)
+        spans.stamp("backbone", dev)
         loss = masked_cross_entropy(learned_out, g.y, g.train_mask)
         if cfg.reg1:
             # the static edge labels rode the aux-row gather above
@@ -227,15 +256,18 @@ def make_learned_loss(cfg: Config, model, q: int):
         if cfg.reg2:
             loss = loss + cfg.consist_reg_coef * consistency_loss(
                 probs_for_loss, s_s, s_r, learned_out, valid=sel_valid)
+        spans.stamp("loss", dev)
 
         if cfg.conditional:
             random_out = _apply_gnn(model, g.x, rand_s, rand_r, None,
                                     generator)
+            spans.stamp("backbone", dev)
             lf1 = micro_f1(learned_out, g.y, g.train_mask)
             rf1 = micro_f1(random_out, g.y, g.train_mask)
             gate = (lf1 > rf1).detach()
             loss_random = masked_cross_entropy(random_out, g.y, g.train_mask)
             total = torch.where(gate, loss, loss_random)
+            spans.stamp("loss", dev)
         else:
             gate = torch.ones((), dtype=torch.bool, device=dev)
             lf1 = rf1 = torch.zeros((), device=dev)
@@ -264,8 +296,12 @@ def make_baseline_loss(cfg: Config, model, q: int,
             else:
                 idx = sample_prior_edges(generator, g.prob, q, g.edge_mask)
             s_s, s_r, _, _ = _aux_columns(g.edge_aux[idx])
+            spans.stamp("sampler", g.x.device)
         out = _apply_gnn(model, g.x, s_s, s_r, None, generator)
-        return masked_cross_entropy(out, g.y, g.train_mask)
+        spans.stamp("backbone", g.x.device)
+        loss = masked_cross_entropy(out, g.y, g.train_mask)
+        spans.stamp("loss", g.x.device)
+        return loss
 
     return loss_fn
 
@@ -291,7 +327,9 @@ def _step_cases(cfg: Config, model, opt: DualOptimizer, q: int):
 
             def case(g: Graph, generator: torch.Generator):
                 loss = loss_fn(g, generator)
-                opt.step_all(param_grads(loss, opt.params))
+                grads = param_grads(loss, opt.params)
+                spans.stamp("backbone", g.x.device)
+                opt.step_all(grads)
                 zero = torch.zeros((), device=g.x.device)
                 return loss.detach(), zero, zero, zero
             return case
@@ -301,14 +339,21 @@ def _step_cases(cfg: Config, model, opt: DualOptimizer, q: int):
 
     def small(g: Graph, generator: torch.Generator):
         out = _apply_gnn(model, g.x, g.senders, g.receivers, None, generator)
+        spans.stamp("backbone", g.x.device)
         loss = masked_cross_entropy(out, g.y, g.train_mask)
-        opt.step_gnn_only(param_grads(loss, opt.params))
+        spans.stamp("loss", g.x.device)
+        grads = param_grads(loss, opt.params)
+        spans.stamp("backbone", g.x.device)
+        opt.step_gnn_only(grads)
         zero = torch.zeros((), device=g.x.device)
         return loss.detach(), zero, zero, zero
 
     def sampled(g: Graph, generator: torch.Generator):
         total, (gate, lf1, rf1) = learned_loss(g, generator)
-        opt.step_learned(param_grads(total, opt.params), gate)
+        grads = param_grads(total, opt.params)
+        # the backward after the boundary (make_learned_loss)
+        spans.stamp("scorer", g.x.device)
+        opt.step_learned(grads, gate)
         return total.detach(), gate.float(), lf1, rf1
 
     return {1: small, 2: sampled}
@@ -346,10 +391,11 @@ class ScanEpochStep:
         self.temperature_of = temperature_of
         self.n_batches = n_batches
         self.classes = ShapeClasses() if classes is None else classes
-        self.graphs = Graphs()
+        self.graphs = Graphs(name="step")
         self.acc = None            # (2,): summed loss, gate count
 
     def _body(self, case, g: Graph, generator: torch.Generator):
+        spans.stamp("between", g.x.device)
         loss, cond, _, _ = case(g, generator)
         self.acc.add_(torch.stack([loss, cond]))
 
@@ -364,14 +410,18 @@ class ScanEpochStep:
             action = actions[bi]
             if action == 0:
                 continue
-            temperature = self.temperature_of(epoch)
-            generator.manual_seed(seed_of(epoch * self.n_batches + bi + 1))
-            bufs, pool = self.classes.slot(batches[bi])
-            g = bufs.load(batches[bi])
-            self.graphs.run((bufs.key, action),
-                            functools.partial(self._body, self.cases[action],
-                                              g),
-                            pool, generator)
+            with spans.span("step", (epoch, bi)):
+                temperature = self.temperature_of(epoch)
+                generator.manual_seed(seed_of(epoch * self.n_batches + bi
+                                              + 1))
+                with spans.span("step.slot"):
+                    bufs, pool = self.classes.slot(batches[bi])
+                with spans.span("step.load"):
+                    g = bufs.load(batches[bi])
+                self.graphs.run((bufs.key, action),
+                                functools.partial(self._body,
+                                                  self.cases[action], g),
+                                pool, generator)
         return self.acc[0], self.acc[1], temperature
 
 

@@ -19,6 +19,7 @@ there, so without the repository's conftest):
     python -m pytest -o addopts="" --noconftest -m cuda tests/test_torch_cuda.py -q
 """
 import importlib
+import time
 
 import numpy as np
 import pytest
@@ -1457,3 +1458,132 @@ def test_learned_beats_random_and_full_on_card():
           for m in ("learned", "random", "full")}
     assert f1["learned"] > f1["random"] + 0.2, f1
     assert f1["learned"] > f1["full"] + 0.1, f1
+
+
+# ------------------------------------------ device stamps (core/spans.py)
+#
+# Stamps only read the clock: a graph captured with them must give the
+# outputs of one captured without them. Where two unstamped runs agree bit
+# for bit the stamped one must too; where the order of f32 atomics differs
+# between runs, it stays within the graphed route's own limits.
+
+
+def _stamps_on():
+    from sgs_gnn_tpu_torch.core import spans
+    spans.reset()
+    spans.enable(device_stamps=True)
+
+
+def _stamps_off():
+    from sgs_gnn_tpu_torch.core import spans
+    spans.disable()
+    spans.reset()
+
+
+def _same_as_unstamped(got, a, b, what):
+    for i, (g, x, y) in enumerate(zip(got, a, b)):
+        if torch.equal(x, y):
+            assert torch.equal(g, x), (what, i)
+        else:
+            dist = float((g.float() - x.float()).norm())
+            assert dist <= PARAM_REL_L2 * float(x.float().norm()), (what, i)
+
+
+def test_stamp_kernel_builds_and_credits_the_work_before_it(card):
+    from sgs_gnn_tpu_torch.core import spans
+    x = torch.randn(1 << 22, device=card)
+    _stamps_on()
+    try:
+        spans.stamp("start", card)
+        for _ in range(20):
+            x = x * 1.0001 + 0.5
+        spans.stamp("work", card)
+        with spans.phase("step"):
+            spans.stamp("work", card)
+        torch.cuda.synchronize()
+        seg = spans.collect()["segments"]
+    finally:
+        _stamps_off()
+    # the first stamp after a reset has no previous one
+    assert seg["start"] == {"stamps": 1, "s": 0.0}
+    assert seg["work"]["stamps"] == 1 and seg["work"]["s"] > 0
+    assert seg["step.work"]["stamps"] == 1
+
+
+@pytest.mark.parametrize("name", ["hybrid_rescore", "random"])
+def test_stamped_graphs_give_the_unstamped_outputs(card, name):
+    """A learned and a random graphed epoch captured with stamps: the same
+    losses and parameters as without; every layer's segment > 0, one
+    optimizer stamp per replayed step, and the segments of the replays
+    (``between`` included) within the host wall time of those replays."""
+    from sgs_gnn_tpu_torch import Config
+    from sgs_gnn_tpu_torch.core import spans
+    from sgs_gnn_tpu_torch.train import make_scan_epoch_step
+    cfg = Config(**GRAPHED_BASE, **GRAPHED_KW[name])
+    batches, plan, q, classes = _graphed_batches(card, cfg)
+    runs = []
+    for stamped in (False, False, True):
+        if stamped:
+            _stamps_on()
+        try:
+            tm, opt = _graphed_model(card, cfg, batches, classes)
+            steps = make_scan_epoch_step(cfg, tm, opt, q, 4, len(batches))
+            gen = torch.Generator(device=card)
+            sums = _run_epochs(steps, batches, plan, 1, gen)   # captures
+            torch.cuda.synchronize()
+            spans.reset()
+            t0 = time.perf_counter()
+            sums += _run_epochs(steps, batches, plan, 2, gen, first=1)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            seg = spans.collect()["segments"]
+        finally:
+            _stamps_off()
+        runs.append((torch.tensor(sums), [p.detach().clone()
+                                           for p in tm.parameters()],
+                     seg, wall))
+    (s_a, p_a, seg_a, _), (s_b, p_b, _, _), (s_s, p_s, seg, wall) = runs
+    assert seg_a == {}
+    _same_as_unstamped([s_s], [s_a], [s_b], name + " losses")
+    _same_as_unstamped(p_s, p_a, p_b, name)
+    layers = ["between", "backbone", "loss", "optimizer"]
+    if name == "hybrid_rescore":
+        layers += ["scorer", "sampler"]
+    trained = 2 * sum(map(bool, plan))
+    for layer in layers:
+        assert seg[f"step.{layer}"]["s"] > 0, (layer, seg)
+    assert seg["step.optimizer"]["stamps"] == trained
+    assert seg["step.between"]["stamps"] == trained
+    assert sum(v["s"] for v in seg.values()) <= wall
+
+
+def test_stamped_predict_gives_the_unstamped_outputs(card):
+    from sgs_gnn_tpu_torch import make_predictor
+    from sgs_gnn_tpu_torch.core import spans
+    cfg, g, tm, q = _serve_model(card)
+    runs = []
+    for stamped in (False, False, True):
+        if stamped:
+            _stamps_on()
+        try:
+            predict = make_predictor(cfg, tm, q)
+            gen = torch.Generator(device=card)
+            out = [predict(g, gen.manual_seed(s)) for s in (1, 2)]
+            torch.cuda.synchronize()
+            spans.reset()
+            t0 = time.perf_counter()
+            out += [predict(g, gen.manual_seed(s)) for s in (1, 2, 3)]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            seg = spans.collect()["segments"]
+        finally:
+            _stamps_off()
+        runs.append(([t for pair in out for t in pair], seg, wall))
+    (a, _, _), (b, _, _), (got, seg, wall) = runs
+    _same_as_unstamped(got, a, b, "predict")
+    draws = cfg.num_samples_eval
+    assert seg["serve.sampler"]["stamps"] == 3 * draws
+    assert seg["serve.backbone"]["stamps"] == 3 * draws
+    for layer in ("between", "scorer", "sampler", "backbone"):
+        assert seg[f"serve.{layer}"]["s"] > 0, (layer, seg)
+    assert sum(v["s"] for v in seg.values()) <= wall
