@@ -275,7 +275,9 @@ SPMM_BIN_FUNCS = ("spmm_bin_count_kernel", "spmm_bin_scatter_kernel")
 #   two_pass: pass 1 (no gradients) runs the encoder (2 layers, K1 and K2
 #     forward only) and K3 over every edge; pass 3 re-runs the encoder on
 #     the sampled subgraph with gradients and the head on the winners (K3
-#     with the receivers sorted, K5): K1 8 + 6 + 2, K2 8.
+#     with the receivers sorted, K5): K1 8 + 6 + 2, K2 8. Pass 1's two
+#     aggregations take K8 in place of K1 where their shape takes tiles
+#     (``pipeline_launches``; on the card at the bench partition's size).
 _ROWS = {"scatter_add": 14, "segment_sum_scalar": 6}
 _UNFUSED = dict(_ROWS, scatter_add=15, scatter_add_sorted=1)
 PIPELINES = {
@@ -320,6 +322,17 @@ MODEL_STEPS = 5               # timed steps of each pair
 # the pairs also run graphed, profiled and grad-checked: between them
 # they run every new layer and scorer but Cheb (K=1: graph-free)
 MODEL_FULL = (("GAT", "GSAGE"), ("GIN", "MLP"))
+
+
+def pipeline_launches(name):
+    """The launches of one step of PIPELINES' ``name`` on the bench
+    partition, two_pass's first pass on K8 where ``k8_forward`` puts it."""
+    out = dict(PIPELINES[name][2])
+    if name == "two_pass":
+        k8 = 2 * k8_forward(N_NODES, N_EDGES)
+        out["scatter_add"] -= k8
+        out.update(forward_rows(0, k8))
+    return out
 
 
 def model_launches(gnn, scorer):
@@ -517,6 +530,35 @@ def row_routes(launches):
         check(on_routes == launches.get(name, 0),
               f"{name}: {on_routes} launches on routes, "
               f"{launches.get(name, 0)} counted")
+    return routes
+
+
+def k8_forward(n, e):
+    """1 where a bf16 GCN aggregation without a backward over ``e`` edges
+    of an ``n``-node part (serving, eval, two_pass's first pass) takes K8
+    on this script's device (``ops/spmm.py`` ``auto_route``): one K8
+    launch in place of K1's; else 0."""
+    from sgs_gnn_tpu_torch.ops.spmm import auto_route, spmm_plan
+    device_type = "cuda" if str(DEVICE).startswith("cuda") else "cpu"
+    return int(auto_route(device_type, False, spmm_plan(n, 1, e, 2).route)
+               == "k8_tiles")
+
+
+def forward_rows(k1, k8):
+    """Launches of ``k1`` forward-only GCN aggregations that take K1 and
+    ``k8`` that take K8."""
+    return {k: v for k, v in (("scatter_add", k1), ("spmm_fused", k8)) if v}
+
+
+def spmm_routes(launches):
+    """The "auto" SpMM's calls per route since the counters were cleared;
+    each call on "k8_tiles" one K8 launch on its tile route."""
+    from sgs_gnn_tpu_torch.ops._build import ROUTES
+    routes = {f"{k} {r}": v for (k, r), v in sorted(ROUTES.items())
+              if k in ("spmm", "spmm_fused")}
+    check(routes.get("spmm k8_tiles", 0) == launches.get("spmm_fused", 0)
+          == routes.get("spmm_fused tiles", 0),
+          f"K8: {routes} routes, {launches.get('spmm_fused', 0)} launches")
     return routes
 
 
@@ -1302,6 +1344,7 @@ def phase_serve(torch, arrays):
     t2 = time.perf_counter()
     launches = dict(LAUNCHES)
     routes = row_routes(launches)
+    k8_routes = spmm_routes(launches)
     peak = torch.cuda.max_memory_allocated()
     slab_chunks = sc.slab_chunk_modes()
     # the id case of each K1 and K2 call, from a second run with the same
@@ -1316,9 +1359,13 @@ def phase_serve(torch, arrays):
     row_calls = classify_row_calls(calls)
     del calls
 
-    expect = {"scatter_add": 2 + 2 + 2 * DRAWS,
-              "segment_sum_scalar": 2 + 2 + 2 * DRAWS,
-              "score_head_sampled": 2}
+    # no backward: each encoder layer (sparsify's and predict's) and each
+    # draw's backbone layer aggregates on K8 where its shape takes tiles
+    k8_all, k8_q = k8_forward(N_NODES, N_EDGES), k8_forward(N_NODES, Q)
+    aggs = forward_rows(4 * (1 - k8_all) + 2 * DRAWS * (1 - k8_q),
+                        4 * k8_all + 2 * DRAWS * k8_q)
+    expect = dict(aggs, segment_sum_scalar=2 + 2 + 2 * DRAWS,
+                  score_head_sampled=2)
     check(launches == expect, f"launch counts {launches}, expected {expect}")
     check(sp.probs.shape == (N_EDGES,) and sp.probs.dtype == torch.float32,
           f"probs {tuple(sp.probs.shape)} {sp.probs.dtype}")
@@ -1427,7 +1474,7 @@ def phase_serve(torch, arrays):
          eager_predict_ms=ms["predict_eager"], block_ms=blocks,
          graphed_edge_overlap=overlap, graphed_logits_max_abs_err=graphed_err,
          max_memory_allocated=peak, launches=launches,
-         row_routes=routes, row_calls=row_calls,
+         row_routes=routes, spmm_routes=k8_routes, row_calls=row_calls,
          k1_slab_chunks=slab_chunks, cpu_reference_s=cpu_s, cpu_subsample=CPU_SUBSAMPLE,
          probs_max_abs_err=float(p_err.max()),
          probs_mean_abs_err=float(p_err.mean()),
@@ -1687,6 +1734,7 @@ def _train_path(torch, g, name, cfg_kw, steps, expect, phase="train",
     gates_all.append(m.conditional_update)
     launches = dict(LAUNCHES)
     routes = row_routes(launches)
+    k8_routes = spmm_routes(launches)
     slab_chunks = sc.slab_chunk_modes()
     row_calls = classify_row_calls(calls)
     del calls
@@ -1734,7 +1782,7 @@ def _train_path(torch, g, name, cfg_kw, steps, expect, phase="train",
          max_memory_allocated=peak, memory_allocated_before=base,
          losses=losses.tolist(), gates=gates.tolist(),
          launches_per_step=launches, row_routes_per_step=routes,
-         row_calls_per_step=row_calls,
+         spmm_routes_per_step=k8_routes, row_calls_per_step=row_calls,
          k1_slab_chunks_per_step=slab_chunks, graphed=graphed, **extra)
     if full:
         emit("profile", call=f"train_step {name}", **eager_profile)
@@ -1826,10 +1874,10 @@ def phase_train(torch, arrays, g):
     """Every learned pipeline (GCN + GCN scorer) on the bench partition
     ``g`` (``train_graph``); returns {pipeline: launches}."""
     launches, cfgs = {}, {}
-    for name, (overrides, steps, expect) in PIPELINES.items():
+    for name, (overrides, steps, _) in PIPELINES.items():
         cfgs[name] = bench_config(**overrides)
         launches[name] = _train_path(torch, g, name, cfgs[name], steps,
-                                     expect)
+                                     pipeline_launches(name))
         torch.cuda.empty_cache()
     # after every timed path: the grad checks' f32 runs on the CPU slowed
     # the host's launches of a path timed right after them
@@ -2628,16 +2676,27 @@ def _experiment_line(mode, ds, data_s, res, lines, per_epoch, launches,
          stats=next(ln for ln in lines if ln.startswith("[stats]")))
 
 
-def _check_launches(mode, route, launches):
+def _check_launches(mode, route, launches, model="GCN+GCN"):
+    """Training launches K1 and K2 (learned: every head kernel too); the
+    eval, which has no backward, aggregates its GCN layers on K8 on the
+    card (every part of the experiment graph, ~1.8k nodes and ~0.2-1M
+    edges, takes tiles: ``k8_forward``) and on K1 elsewhere; GAT and
+    GraphSAGE aggregate on K1 and K2 alone."""
     heads = {k: launches.get(k, 0) for k in HEADS}
     check(all(launches.get(k, 0) > 0 for k in ROWS),
           f"{mode} {route}: K1/K2 not launched: {launches}")
+    gcn = "GCN" in model.split("+")
+    evals = ({"spmm_fused"} if gcn and str(DEVICE).startswith("cuda")
+             else set())
+    check(evals <= set(launches), f"{mode} {route}: the eval did not "
+                                  f"aggregate on K8: {launches}")
     if mode == "learned":
         check(all(heads.values()), f"learned {route}: a head kernel (K3-K6) "
                                    f"was not launched: {launches}")
     else:
-        check(set(launches) == set(ROWS),
-              f"{mode} {route}: launched more than K1 and K2: {launches}")
+        check(set(launches) == set(ROWS) | evals,
+              f"{mode} {route}: launched more than K1, K2 and the eval's "
+              f"K8: {launches}")
 
 
 def _compare_routes(mode, graphed, eager, model="GCN+GCN"):
@@ -2694,7 +2753,7 @@ def _experiment_route(torch, cfg, ds, data_s, mode, route, model,
         check(res.graphs["train_replays"] > 0
               and res.graphs["eval_replays"] > 0,
               f"{label}: graphs {res.graphs}")
-    _check_launches(mode, route, launches)
+    _check_launches(mode, route, launches, model)
     _experiment_line(mode, ds, data_s, res, lines, per_epoch, launches,
                      seconds, route, model)
     torch.cuda.empty_cache()
@@ -3054,7 +3113,7 @@ REDDIT_JAX_PLAN = dict(parts=115, shape_classes=[[32, 778284], [60, 739802],
 REDDIT_MIN_TEST_F1 = 0.93
 
 
-def reddit_launches(plan, draws):
+def reddit_launches(plan, draws, k8):
     """Launches per epoch of the learned run on the batches of ``plan``
     (``RunResult.plan``; no batch skipped, so every batch with at most q
     valid edges is a small one, in training and in the eval):
@@ -3064,14 +3123,16 @@ def reddit_launches(plan, draws):
       eval, per sampled batch the scorer's encoder over every edge (2 GCN
         layers: K1 2, K2 2), K3 over every edge, then per draw the
         backbone (K1 2, K2 2); per small batch the backbone once (K1 2,
-        K2 2)."""
+        K2 2). The eval has no backward: where ``k8`` (every part here:
+        ~2.3k nodes, q = 200,000 and 0.59-0.78M edges take tiles) its
+        aggregations take K8 in place of K1."""
     big, small = plan["big"], plan["small"]
     train = {k: v * big for k, v in PIPELINES["hybrid_rescore"][2].items()}
     train["scatter_add"] += 4 * small
     train["segment_sum_scalar"] += 2 * small
     rows = (2 + 2 * draws) * big + 2 * small
-    return train, dict(scatter_add=rows, segment_sum_scalar=rows,
-                       score_head_sampled=big)
+    return train, dict(forward_rows(rows * (1 - k8), rows * k8),
+                       segment_sum_scalar=rows, score_head_sampled=big)
 
 
 def phase_reddit_scale(torch):
@@ -3119,7 +3180,10 @@ def phase_reddit_scale(torch):
                     batch_nodes=got["batch_nodes"],
                     tile_slots=got["tile_slots"])
     peak_reserved = torch.cuda.max_memory_reserved()
-    want_train, want_eval = reddit_launches(plan, cfg.num_samples_eval)
+    nodes = got["batch_nodes"]
+    k8 = min(k8_forward(nodes, e) for e in [plan["q"]] + [
+        e for _, e in plan["shape_classes"]])
+    want_train, want_eval = reddit_launches(plan, cfg.num_samples_eval, k8)
     emit("reddit_scale", dataset=ds.name, nodes=ds.num_nodes,
          edges=ds.num_edges, features=ds.x.shape[1],
          classes=ds.num_classes, he=ds.He,
@@ -3396,16 +3460,19 @@ def phase_baselines(torch, arrays):
 # partition's whole edge list. K1 and K2 per first layer: GCN one
 # aggregation (K1) and its degrees (K2); GIN one sum (K1); GAT the message
 # sum (K1) and the softmax denominators of its (E+N,) logits (K2);
-# "logits" runs both layers, twice that. Held to the port on the CPU in
-# f32 within the train phase's bf16 limit, GRAD_REL_TOL (relative L2).
+# "logits" runs both layers, twice that. GCN's bf16 aggregation has no
+# backward here, so it takes K8 in place of K1 (``k8_forward``); GIN sums
+# the f32 features. Held to the port on the CPU in f32 within the train
+# phase's bf16 limit, GRAD_REL_TOL (relative L2).
 EMBEDDING_ROWS = {"GCN": (1, 1), "GIN": (1, 0), "GAT": (1, 1)}
 
 
 def embedding_launches(gnn, layer):
     k1, k2 = (n * (2 if layer == "logits" else 1)
               for n in EMBEDDING_ROWS[gnn])
-    return {k: v for k, v in (("scatter_add", k1),
-                              ("segment_sum_scalar", k2)) if v}
+    k8 = k1 * k8_forward(N_NODES, N_EDGES) if gnn == "GCN" else 0
+    return dict(forward_rows(k1 - k8, k8),
+                **({"segment_sum_scalar": k2} if k2 else {}))
 
 
 def phase_embeddings(torch, arrays):

@@ -15,7 +15,9 @@ synchronise. :func:`enable` turns them on:
   * **Counters.** ``count(name, n)``. The kernel wrappers' launch counts,
     ``LAUNCHES`` (per kernel) and ``ROUTES`` (per kernel and route), live
     here too and count whether or not the module is on
-    (``ops/_build`` keeps its names for them).
+    (``ops/_build`` keeps its names for them). ``ROUTES[("spmm", route)]``
+    counts the aggregation's calls per route (``ops/spmm.py``
+    ``auto_route``: "k8_tiles" or "gather_k1"), not launches.
   * **Device stamps** (``enable(device_stamps=True)``). ``stamp(segment,
     device)`` enqueues a one-thread kernel (``csrc/stamp.cu``) on the
     device's current stream: it reads the device's ``%globaltimer`` and
@@ -63,6 +65,7 @@ _records: List[list] = []   # [name, id, parent, t0_ns, t1_ns]
 _open: List[int] = []       # indices of the open spans, innermost last
 _counters: collections.Counter = collections.Counter()
 _launches0: collections.Counter = collections.Counter()
+_routes0: collections.Counter = collections.Counter()
 _generation = 0             # bumped by reset(): spans opened before it
 _phase = ""
 _rows: Dict[str, int] = {}  # segment -> accumulator row
@@ -93,6 +96,8 @@ def reset() -> None:
     _counters.clear()
     _launches0.clear()
     _launches0.update(LAUNCHES)
+    _routes0.clear()
+    _routes0.update(ROUTES)
     _generation += 1
     for acc, last in _acc.values():
         acc.zero_()
@@ -225,7 +230,8 @@ def collect() -> dict:
     """What was recorded since the last :func:`reset`: ``spans`` (name ->
     calls, total_s, self_s), ``records`` (name, id, parent, t0_ns, t1_ns;
     finished spans), ``counters`` (name -> count; the kernel launches as
-    ``kernels.launches.<kernel>``) and ``segments`` (name -> stamps,
+    ``kernels.launches.<kernel>``, the routes as
+    ``kernels.routes.<kernel>.<route>``) and ``segments`` (name -> stamps,
     seconds). Reads the device accumulators: synchronise first."""
     done = [r for r in _records if r[4] is not None]
     child_ns = collections.Counter()
@@ -245,6 +251,9 @@ def collect() -> dict:
     for k, v in LAUNCHES.items():
         if v != _launches0[k]:
             counters[f"kernels.launches.{k}"] = v - _launches0[k]
+    for (k, route), v in ROUTES.items():
+        if v != _routes0[k, route]:
+            counters[f"kernels.routes.{k}.{route}"] = v - _routes0[k, route]
     segments: Dict[str, dict] = {}
     tables = [acc.cpu() for acc, _ in _acc.values()]
     for name, row in _rows.items():

@@ -18,7 +18,9 @@ went through the kernels. ``ROUTES`` counts them per (kernel, route) where a
 wrapper dispatches one kernel name to several routes (K1: "slab" or
 "direct", K2: "shared" or "global", by ``ops/scatter.py``'s plans; K5:
 "tensor_cores" for bf16 h, "cuda_cores" for f32; K8: "tiles" or "gather",
-by ``ops/spmm.py`` ``spmm_plan``). What a kernel picks from
+by ``ops/spmm.py`` ``spmm_plan``); ``ops/spmm.py`` adds ("spmm", route),
+calls of its "auto" backend per route, which launch no kernel of that
+name. What a kernel picks from
 the data, not the host, it counts on the card itself (K1's slab chunks per
 mode: ``ops/scatter.py`` ``slab_chunk_modes``). Both counters are
 ``core/spans.py``'s ``LAUNCHES`` and ``ROUTES`` (the same objects). With

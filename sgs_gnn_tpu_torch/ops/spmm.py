@@ -12,7 +12,13 @@ differentiable ``gather_rows`` and ``scatter_add``, so autograd gives the
 JAX custom VJP (spmm.py:149-175): dx is the transpose SpMM (gather of the
 cotangent at the receivers, times w, then K1 over the senders) and dw the
 SDDMM ``<x[senders], g[receivers]>``, with the products in ``x.dtype`` as
-there.
+there. A call on a card that records no autograd graph, on shapes that
+suit K8's tile route (serving, eval, any pass without a backward), runs
+K8 instead (:func:`auto_route`): the gather, the weight multiply and K1
+write, scale and re-read an (E, F) message matrix that K8 never forms.
+Its products and sums are f32, never coarser than the bf16 messages. A
+call that records a graph keeps the route above and its VJP;
+``ROUTES[("spmm", route)]`` counts each "auto" call on the route it took.
 
 ``"fused"`` (the JAX ``backend="pallas"``, spmm.py:116-120, over
 ``spmm_pallas.py``): one pass with no (E, F) message matrix in device
@@ -153,6 +159,17 @@ def part_range(total: int, p: int, parts: int) -> tuple[int, int]:
     return total * p // parts, total * (p + 1) // parts
 
 
+def auto_route(device_type: str, records_grad: bool, plan_route: str) -> str:
+    """The route of ``spmm(backend="auto")``: "k8_tiles" (K8, one pass, no
+    message matrix) for a call on a CUDA device that records no autograd
+    graph and whose :func:`spmm_plan` is "tiles"; "gather_k1" (the gather,
+    the weight multiply and K1) for every other call: one that records a
+    graph, the CPU, f32 x, sparse graphs."""
+    if device_type == "cuda" and not records_grad and plan_route == "tiles":
+        return "k8_tiles"
+    return "gather_k1"
+
+
 def spmm(senders, receivers, weights, x, num_nodes: int,
          backend: str = "auto"):
     """(N, F) = A_w @ x over the (senders, receivers) edge list."""
@@ -163,6 +180,21 @@ def spmm(senders, receivers, weights, x, num_nodes: int,
         return _SpmmFused.apply(senders, receivers, weights, x, num_nodes)
     if backend != "auto":
         raise ValueError(f"spmm: backend={backend!r} not in {BACKENDS}")
+    records_grad = torch.is_grad_enabled() and (
+        x.requires_grad or (weights is not None and weights.requires_grad))
+    # K8 reads x's rows by sender id: only a square A_w (a halo's extended
+    # table has more rows than receivers)
+    plan_route = (spmm_plan(num_nodes, x.shape[1], senders.shape[0],
+                            x.element_size()).route
+                  if x.shape[0] == num_nodes else "")
+    route = auto_route(x.device.type, records_grad, plan_route)
+    _build.ROUTES["spmm", route] += 1
+    if route == "k8_tiles":
+        if weights is None:
+            weights = torch.ones(senders.shape[0], dtype=torch.float32,
+                                 device=x.device)
+        return _SpmmFused.apply(senders.int(), receivers.int(), weights, x,
+                                num_nodes)
     msgs = gather_rows(x, senders)
     if weights is not None:
         msgs = msgs * weights[:, None].to(x.dtype)

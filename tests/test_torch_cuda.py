@@ -18,6 +18,7 @@ there, so without the repository's conftest):
 
     python -m pytest -o addopts="" --noconftest -m cuda tests/test_torch_cuda.py -q
 """
+import collections
 import importlib
 import time
 
@@ -480,6 +481,69 @@ def test_spmm_fused_captured_in_a_cuda_graph(card, f):
              (static[2], eager[2]))):
         for got in pair:
             _assert_sums(got, ref, abs_sum, 2 ** -8 * ref.abs())
+
+
+# spmm(backend="auto") without a backward, at the serving cell's shapes (a
+# part of N=2,123, the q=200,000 sampled edges of a draw, the backbone's
+# widths): K8's tile route, one launch, no K1, counted on ("spmm",
+# "k8_tiles"); under autograd the gather, the multiply and K1.
+def _route_delta(run):
+    from sgs_gnn_tpu_torch.ops._build import ROUTES
+    launches0, routes0 = dict(LAUNCHES), dict(ROUTES)
+    out = run()
+    torch.cuda.synchronize()
+    launches = {k: v - launches0.get(k, 0) for k, v in LAUNCHES.items()
+                if v != launches0.get(k, 0)}
+    routes = {k: v - routes0.get(k, 0) for k, v in ROUTES.items()
+              if v != routes0.get(k, 0)}
+    return out, launches, routes
+
+
+def _sampled_part(card, f, weighted):
+    """N=2,123 and q=200,000 receiver-unsorted sampled edges, the last
+    2,000 the padding self-loops on node 0 (weight 0 where weighted, as a
+    draw's padding selections weigh)."""
+    n, q = 2123, 200_000
+    g = torch.Generator(device=card).manual_seed(19)
+    s, r = _ids(card, g, n, q), _ids(card, g, n, q)
+    w = torch.rand(q, generator=g, device=card)
+    s[-2000:], r[-2000:], w[-2000:] = 0, 0, 0.0
+    x = torch.randn(n, f, generator=g, device=card).to(torch.bfloat16)
+    assert sp.spmm_plan(n, f, q, 2).route == "tiles"
+    return s, r, (w if weighted else None), x, n
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("f", [256, 41])
+def test_forward_only_spmm_takes_k8(card, f, weighted):
+    """Held to the f64 plain sum within K8's limit and one bf16 rounding of
+    the output, as the fused backend's output is held; the padding
+    self-loops count as they come."""
+    s, r, w, x, n = _sampled_part(card, f, weighted)
+    with torch.no_grad():
+        out, launches, routes = _route_delta(
+            lambda: sp.spmm(s, r, w, x, n))
+    assert launches == {"spmm_fused": 1}
+    assert routes == {("spmm", "k8_tiles"): 1, ("spmm_fused", "tiles"): 1}
+    assert out.dtype == torch.bfloat16 and out.shape == (n, f)
+    wf = torch.ones_like(s, dtype=torch.float32) if w is None else w
+    ref = sp.spmm_fused_plain(s, r, wf, x, n, acc_dtype=F64)
+    _assert_sums(out, ref, sp.spmm_fused_plain(s, r, wf, x.abs(), n,
+                                               acc_dtype=F64),
+                 2 ** -8 * ref.abs())
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_spmm_under_autograd_keeps_gather_k1(card, weighted):
+    """A call that records a graph keeps the gather, the multiply and K1:
+    no K8 launch, counted on ("spmm", "gather_k1")."""
+    s, r, w, x, n = _sampled_part(card, 256, weighted)
+    x = x.clone().requires_grad_()
+    out, launches, routes = _route_delta(lambda: sp.spmm(s, r, w, x, n))
+    assert launches == {"scatter_add": 1}
+    assert routes[("spmm", "gather_k1")] == 1
+    assert ("spmm", "k8_tiles") not in routes
+    assert out.requires_grad and out.dtype == torch.bfloat16
 
 
 def _head(card, g, n, f, k, dtype):
@@ -1100,7 +1164,7 @@ def test_graphed_eval_equals_the_eager_eval(card):
                 assert abs(float(g_[k]) - float(w[k])) <= tol, (mode, k)
 
 
-def _serve_model(card):
+def _serve_model(card, dtype="float32"):
     from sgs_gnn_tpu_torch import Config, Graph, get_model
     from sgs_gnn_tpu_torch.data import degree_prior
     rng = np.random.default_rng(0)
@@ -1110,10 +1174,44 @@ def _serve_model(card):
                     rng.integers(0, c, n).astype(np.int32),
                     prob=degree_prior(ei[0], ei[1], n), num_classes=c,
                     sort_by_receiver=True, device=card)
-    cfg = Config(nhid=32, num_samples_eval=4)
-    tm = get_model("GCN", f, cfg.nhid, c, cfg.drop_rate, "GCN", device=card,
+    cfg = Config(nhid=32, num_samples_eval=4, dtype=dtype)
+    tm = get_model("GCN", f, cfg.nhid, c, cfg.drop_rate, "GCN",
+                   dtype=cfg.dtype, device=card,
                    generator=torch.Generator().manual_seed(0))
     return cfg, g, tm, 4_000
+
+
+def test_predict_on_k8_matches_the_gather_k1_route(card, monkeypatch):
+    """bf16 ``predict`` (graphed) aggregates every GCN layer with K8 (the
+    encoder over 20,000 edges and each draw's 4,000 on 25 tiles): counted
+    on ("spmm", "k8_tiles") alone, and its logits within the serving
+    cell's ``logit_gap`` limit of the same call, eager, with every
+    aggregation forced onto the gather, the multiply and K1."""
+    import json
+    from pathlib import Path
+    from sgs_gnn_tpu_torch import make_predictor
+    from sgs_gnn_tpu_torch.ops._build import ROUTES
+    limit = json.loads((Path(__file__).resolve().parents[1] / "benchmark"
+                        / "limits" / "gcn_reddit.serve_predict.json")
+                       .read_text())["logit_gap"]
+    cfg, g, tm, q = _serve_model(card, "bfloat16")
+    predict = make_predictor(cfg, tm, q)
+    layers = 2 + 2 * cfg.num_samples_eval
+    for seed in (1, 2):                 # eager + capture, then a replay
+        before = collections.Counter(ROUTES)
+        logits, _ = predict(g, torch.Generator(device=card).manual_seed(seed))
+        torch.cuda.synchronize()
+        assert {k: v for k, v in (ROUTES - before).items()
+                if k[0] == "spmm"} == {("spmm", "k8_tiles"): layers}
+    with monkeypatch.context() as m:
+        m.setattr(sp, "auto_route", lambda *a: "gather_k1")
+        before = collections.Counter(ROUTES)
+        want, _ = predict.eager(g, torch.Generator(device=card).manual_seed(2))
+        assert {k: v for k, v in (ROUTES - before).items()
+                if k[0] in ("spmm", "spmm_fused")} == {
+            ("spmm", "gather_k1"): layers}
+    gap = float((logits.float() - want.float()).abs().max())
+    assert gap <= limit, gap
 
 
 @pytest.mark.parametrize("new_generator", [False, True],
@@ -1209,7 +1307,10 @@ def test_resumed_state_replays_into_graphs_captured_before(card):
 # rounding: chip_smoke.py's grad_check limits, 1% and 5%. Launches per
 # step (derived as chip_smoke.py's ``model_launches``): the scorer's GCN
 # encoder (K1 4, K2 2) and the random forward (GCN K1 4, K2 2; GAT K1 4,
-# K2 8) leave K1 and K2; the learned backbone and reg2 (K1 2) stay.
+# K2 8) leave K1 and K2; the learned backbone and reg2 (K1 2) stay. On
+# the sparse route two_pass's first pass (no backward) aggregates its bf16
+# encoder on K8 (``ops/spmm.py`` ``auto_route``: 2 launches), which the
+# dense route replaces too.
 DENSE_CASES = {
     "hybrid_gcn": (dict(pipeline="hybrid"), dict(scatter_add=6,
                                                  segment_sum_scalar=2)),
@@ -1255,8 +1356,11 @@ def test_dense_route_on_card_matches_sparse(card, case, dtype):
     (loss_s, g_s, l_s), (loss_d, g_d, l_d) = out["off"], out["on"]
     assert all(l_d.get(k, 0) == v for k, v in rows.items()), l_d
     assert l_s["scatter_add"] > l_d["scatter_add"]
+    k8 = 2 * (case == "two_pass_gcn" and dtype == "bfloat16"
+              and sp.spmm_plan(n, 1, e, 2).route == "tiles")
+    assert l_s.get("spmm_fused", 0) == k8 and "spmm_fused" not in l_d
     assert {k: v for k, v in l_d.items() if k not in rows} == \
-        {k: v for k, v in l_s.items() if k not in rows}
+        {k: v for k, v in l_s.items() if k not in rows and k != "spmm_fused"}
     loss_tol, grad_tol = (1e-5, 1e-4) if dtype == "float32" else (1e-2, 5e-2)
     assert abs(loss_d - loss_s) <= loss_tol * abs(loss_s)
     for k, want in g_s.items():

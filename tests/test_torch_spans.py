@@ -263,8 +263,29 @@ def test_counters_at_the_graphs_and_the_launch_counters():
     assert c["graph.eager_runs"] == 1 and c["graph.captures"] == 1
     assert c["graph.replays"] == 3
     assert c["kernels.launches.scatter_add"] == 8
+    assert c["kernels.routes.scatter_add.slab"] == 8
     assert {k: v["calls"] for k, v in got["spans"].items()} == {
         "graph.eager": 1, "graph.capture": 1, "step.replay": 3}
+
+
+def test_the_aggregation_route_counter():
+    """``spmm(backend="auto")`` counts each call on the route it took in
+    ``ROUTES`` ("gather_k1" on the CPU, with or without gradients), which
+    ``collect`` reports as ``kernels.routes.spmm.<route>``; a counter
+    that did not move since ``reset`` is left out."""
+    from sgs_gnn_tpu_torch.ops import spmm
+    x = torch.randn(10, 4).to(torch.bfloat16)
+    s = torch.tensor([0, 1, 2, 9], dtype=torch.int32)
+    r = torch.tensor([1, 1, 2, 0], dtype=torch.int32)
+    spmm(s, r, None, x, 10)
+    spans.enable()
+    spans.reset()
+    with torch.no_grad():
+        spmm(s, r, torch.ones(4), x, 10)
+    spmm(s, r, None, x.clone().requires_grad_(), 10)
+    c = spans.collect()["counters"]
+    assert {k: v for k, v in c.items() if k.startswith("kernels.routes.")} \
+        == {"kernels.routes.spmm.gather_k1": 2}
 
 
 def test_counters_at_the_data_epoch_eval_and_kernel_boundaries(

@@ -11,6 +11,7 @@ themselves run only on the card (tests/test_torch_cuda.py).
 Tolerance of every value comparison: 1e-5 * sum|w x| per row + 1e-6, as on
 the card (f32 sums in another order; hi + lo keeps a summed pair weight to
 a relative 2^-17)."""
+import collections
 import importlib
 
 import jax.numpy as jnp
@@ -233,3 +234,128 @@ def test_spmm_tiles_plain_holds_a_repeated_pair(repeats, weight):
         short = float((panel - panel.to(torch.bfloat16).float()).abs())
         assert short > float(tol[70].max())
         assert float((got[70] - ref[70]).abs().max()) <= float(tol[70].min())
+
+
+# ------------------------------------------- the "auto" backend's route
+#
+# spmm(backend="auto") takes K8 ("k8_tiles") only for a call on a card that
+# records no autograd graph and whose plan is "tiles"; every other call
+# keeps the gather, the weight multiply and K1 ("gather_k1"), whose values
+# are the route's before K8 was taken, bit for bit.
+
+def _gather_k1(s, r, w, x, n):
+    """The "gather_k1" route as written before the route pick."""
+    from sgs_gnn_tpu_torch.ops.edge_gather import gather_rows
+    from sgs_gnn_tpu_torch.ops.scatter import scatter_add
+    msgs = gather_rows(x, s)
+    if w is not None:
+        msgs = msgs * w[:, None].to(x.dtype)
+    return scatter_add(msgs, r, n).to(x.dtype)
+
+
+def _padded_inputs(n, e, f, weighted, pad=500):
+    """A tiles-plan shape (bf16) whose last ``pad`` edges are the padding
+    self-loops on node 0 with weight 0, as ``Graph.build`` pads."""
+    rng = np.random.default_rng(11)
+    s, r, w, x = _inputs(rng, n, e, f, "sorted", True)
+    s[-pad:], r[-pad:], w[-pad:] = 0, 0, 0.0
+    assert sp.spmm_plan(n, f, e, 2).route == "tiles"
+    return s, r, (w if weighted else None), x
+
+
+@pytest.mark.parametrize("device_type", ["cuda", "cpu"])
+@pytest.mark.parametrize("records_grad", [False, True])
+@pytest.mark.parametrize("plan_route", ["tiles", "gather", ""])
+def test_auto_route_is_a_function_of_device_grad_and_plan(
+        device_type, records_grad, plan_route):
+    want = ("k8_tiles" if (device_type, records_grad, plan_route)
+            == ("cuda", False, "tiles") else "gather_k1")
+    assert sp.auto_route(device_type, records_grad, plan_route) == want
+
+
+@pytest.mark.parametrize("case,want", [
+    ("no_grad", (False, "tiles")),
+    ("grad_on_nothing_requires_it", (False, "tiles")),
+    ("x_requires_grad", (True, "tiles")),
+    ("weights_require_grad", (True, "tiles")),
+    ("weights_require_grad_under_no_grad", (False, "tiles")),
+    ("f32_x", (False, "gather")),
+    ("sparse", (False, "gather")),
+    ("more_rows_than_nodes", (False, "")),
+])
+def test_spmm_auto_asks_the_route_what_the_call_shows(monkeypatch, case,
+                                                      want):
+    """``spmm`` hands ``auto_route`` the device type, whether the call
+    records a graph (grad mode on and x or the weights requiring grad) and
+    the plan's route of a square A_w (none where x has more rows than
+    there are receivers, as a halo's extended table)."""
+    n, e, f = 300, 12_000, 41
+    s, r, w, x = _padded_inputs(n, e, f, True)
+    asked = []
+    monkeypatch.setattr(sp, "auto_route",
+                        lambda *a: asked.append(a) or "gather_k1")
+    rows = n
+    if case == "x_requires_grad":
+        x = x.clone().requires_grad_()
+    elif case.startswith("weights_require_grad"):
+        w = w.clone().requires_grad_()
+    elif case == "f32_x":
+        x = x.float()
+    elif case == "sparse":
+        s, r, w = s[:1000], r[:1000], w[:1000]
+    elif case == "more_rows_than_nodes":
+        x = torch.cat([x, x[:7]])
+    grad = not case.endswith("no_grad")
+    with torch.set_grad_enabled(grad):
+        sp.spmm(s, r, w, x, rows)
+    assert asked == [("cpu",) + want]
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("grad", ["no_grad", "autograd"])
+def test_spmm_auto_on_cpu_is_the_gather_k1_route_bit_for_bit(weighted, grad):
+    """On the CPU the route is "gather_k1", with or without gradients: the
+    values (and under autograd dx and dw) are those of the gather, the
+    multiply and K1 exactly, at a shape whose plan is "tiles"; the call is
+    counted on its route."""
+    from sgs_gnn_tpu_torch.ops import _build
+    n, e, f = 300, 12_000, 64
+    s, r, w, x = _padded_inputs(n, e, f, weighted)
+    if grad == "autograd":
+        x = x.clone().requires_grad_()
+        if w is not None:
+            w = w.clone().requires_grad_()
+    routes0 = collections.Counter(_build.ROUTES)
+    with torch.set_grad_enabled(grad == "autograd"):
+        got = sp.spmm(s, r, w, x, n)
+        want = _gather_k1(s, r, w, x, n)
+    assert _build.ROUTES - routes0 == {("spmm", "gather_k1"): 1}
+    assert got.dtype == x.dtype and torch.equal(got, want)
+    if grad == "autograd":
+        cot = torch.from_numpy(np.random.default_rng(2).normal(
+            size=(n, f)).astype(np.float32)).to(x.dtype)
+        wrt = [t for t in (x, w) if t is not None]
+        for a, b in zip(torch.autograd.grad(got, wrt, cot),
+                        torch.autograd.grad(want, wrt, cot)):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("ids", [torch.int32, torch.int64])
+def test_spmm_auto_on_the_k8_route_is_k8(monkeypatch, weighted, ids):
+    """Where the route is "k8_tiles" (forced here: the CPU never takes it)
+    the call is K8's (on the CPU its plain version): f32 products of the
+    x-rounded weights, f32 sums, the padding self-loops counted as they
+    come (weight 0, or 1 unweighted), int64 ids narrowed to int32, the
+    output in x's dtype; counted on its route."""
+    from sgs_gnn_tpu_torch.ops import _build
+    n, e, f = 300, 12_000, 41
+    s, r, w, x = _padded_inputs(n, e, f, weighted)
+    monkeypatch.setattr(sp, "auto_route", lambda *a: "k8_tiles")
+    routes0 = collections.Counter(_build.ROUTES)
+    with torch.no_grad():
+        got = sp.spmm(s.to(ids), r.to(ids), w, x, n)
+    assert _build.ROUTES - routes0 == {("spmm", "k8_tiles"): 1}
+    ones = torch.ones(e, dtype=torch.float32)
+    want = sp.spmm_fused_plain(s, r, ones if w is None else w, x, n)
+    assert got.dtype == x.dtype and torch.equal(got, want.to(x.dtype))

@@ -15,7 +15,9 @@ segments; the idle gaps labelled by the harness's spans and by the
 program's (``spans.label_gaps``); the stamped device time of the train
 graphs (every segment but ``between``) beside the profiler's device time of
 the same replays; and the readings the per-layer metrics of this tracing
-would take (``optimizer_ms.train`` ... ``setup_partition_s``). With
+would take (``optimizer_ms.train`` ... ``setup_partition_s``), and the
+share of the window's GCN aggregations that took K8 (``spmm_k8_share``,
+from ``kernels.routes.spmm.*``). With
 ``--check`` the run is then held to the plain reference as
 ``benchmark/run.py`` holds it, and ``correct`` is printed.
 
@@ -167,6 +169,11 @@ def readings(run, tr, setup):
         out["stamps_per_request"] = sum(
             v["stamps"] for k, v in seg.items()
             if k.startswith("serve.")) / n
+    # the share of the window's GCN aggregations (spmm "auto") on K8
+    counters = tr["program"]["counters"]
+    k8, k1 = (counters.get(f"kernels.routes.spmm.{r}", 0)
+              for r in ("k8_tiles", "gather_k1"))
+    out["spmm_k8_share"] = k8 / (k8 + k1) if k8 + k1 else None
     return out
 
 
