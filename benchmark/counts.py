@@ -14,6 +14,8 @@ classes, ``heads`` GAT's first-layer heads.
 """
 from __future__ import annotations
 
+from . import archs
+
 # NVIDIA H100 SXM data sheet, dense, at the 700 W limit
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BPS = 3.35e12
@@ -67,25 +69,14 @@ def _fb(pair, backward):
 
 
 def backbone(cfg, n, e, backward):
-    fin, k, c = cfg["num_features"], cfg["nhid"], cfg["num_classes"]
-    if cfg["GNN"] == "GCN":
-        return (_fb(gcn_layer(n, e, fin, k, False), backward)
-                + _fb(gcn_layer(n, e, k, c, True), backward))
-    if cfg["GNN"] == "GAT":
-        hk = k * cfg["gat_heads"]
-        return (_fb(gat_layer(n, e, fin, hk, False), backward)
-                + _fb(gat_layer(n, e, hk, c, True), backward))
-    raise NotImplementedError(cfg["GNN"])
+    """The backbone on e edges, with its backward (its module under
+    ``benchmark/archs/``)."""
+    return _fb(archs.backbone(cfg).count(cfg, n, e), backward)
 
 
 def scorer_encoder(cfg, n, e, backward):
-    fin, k = cfg["num_features"], cfg["nhid"]
-    if cfg["edge_mlp_type"] == "GCN":
-        return (_fb(gcn_layer(n, e, fin, k, False), backward)
-                + _fb(gcn_layer(n, e, k, k, True), backward))
-    if cfg["edge_mlp_type"] == "GSAGE":
-        return _fb(sage_layer(n, e, fin, k), backward)
-    raise NotImplementedError(cfg["edge_mlp_type"])
+    """The scorer's encoder on e edges, with its backward."""
+    return _fb(archs.scorer(cfg).count(cfg, n, e), backward)
 
 
 def train_step_flops(cfg, mode, n, e, q):

@@ -5,8 +5,19 @@ Everything that belongs to a configuration, a traffic mix or a per-layer
 metric is read from its own file, found by the names in ``BENCHMARK.json``:
 ``configs/<config>.json`` (the flags the program runs with and the graph's
 sizes), ``traffic/<mix>.json`` (the loop, the mode, the draws),
-``limits/<cell>.json`` (the limit of each number compared) and
-``metrics/<metric>.py`` (a reader of the traced stretch).
+``limits/<cell>.json`` (the limit of each number compared),
+``metrics/<metric>.py`` (a reader of the traced stretch) and
+``archs/backbone_<GNN>.py``, ``archs/scorer_<edge_mlp_type>.py`` (each
+architecture's plain reference and count).
+
+A reader gets ``ctx``: the trace (``trace.Trace``), the window's facts,
+the cell, the set-up's stages, the shapes, and ``program``, the
+program's own record of the traced stretch (``core/spans.py``
+``collect()``: spans, counters, stamped device segments). The program's
+tracing is on, from before the set-up, only in a ``--trace 1`` run of a
+cell that reports a metric of source ``program_span`` or
+``program_counter``; elsewhere the record holds the launch and route
+counters alone.
 
 The program is the port, ``sgs_gnn_tpu_torch``: its data layer
 (``run.driver.prepare_batches``), its graphed epoch and eval
@@ -33,6 +44,7 @@ from .reference import make_weights
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "sgs_gnn_tpu")
+PROGRAM_SOURCES = ("program_span", "program_counter")
 
 
 def load_json(path):
@@ -81,12 +93,20 @@ class Cell:
         return dict(f, num_features=self.graph["num_features"],
                     num_classes=self.graph["num_classes"])
 
+    def per_layer(self):
+        """The entries of the per-layer metrics this cell reports."""
+        return [m for m in self.bench["per_layer"]
+                if "workloads" not in m or self.name in m["workloads"]]
+
+    def reads_program(self):
+        """Whether a per-layer metric of this cell reads the program's
+        own spans or counters (``core/spans.py``)."""
+        return any(m["source"] in PROGRAM_SOURCES for m in self.per_layer())
+
     def readers(self):
         """(entry, module) of the per-layer metrics this cell reports."""
         out = []
-        for m in self.bench["per_layer"]:
-            if "workloads" in m and self.name not in m["workloads"]:
-                continue
+        for m in self.per_layer():
             spec = importlib.util.spec_from_file_location(
                 "benchmark_metric_" + m["name"].replace(".", "_"),
                 HERE / "metrics" / f"{m['name']}.py")
@@ -374,6 +394,7 @@ class Run:
         self.trace = tr
         ctx = dict(trace=tr, facts=self.window_facts, cell=self.cell,
                    stages=self.stages, shapes=self.shapes(),
+                   program=tr.program,
                    log=lambda msg: print(msg, flush=True))
         out = {}
         for m, mod in self.cell.readers():

@@ -4,9 +4,10 @@ graph capture, nothing of the program imported.
 It works out again everything the program derives from the benchmark's
 inputs: the induced subgraph of each partition with its padding, receiver
 sort, degree prior and tile-pair index (``build_batch``); the scorer, the
-score head with its counter-hash dropout, the backbones (GCN, GAT) and the
-scorers (GCN, GraphSAGE); the samplers; the losses; and the dual Adam
-update with its gated edge group.
+score head with its counter-hash dropout, the layers the backbones and
+scorers are made of (GCN, GraphSAGE, GAT: each architecture composes
+them in its module under ``benchmark/archs/``); the samplers; the
+losses; and the dual Adam update with its gated edge group.
 
 Random draws follow the program's stream: the same ``torch.Generator``
 calls (``torch.rand`` of the same shapes, ``torch.randint`` for the score
@@ -32,6 +33,8 @@ import math
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from . import archs
 
 TINY = torch.finfo(torch.float32).tiny
 EPS_NORM = 1e-12
@@ -272,31 +275,18 @@ def dropout(x, rate, gen):
 
 class Model:
     """The backbone and scorer of a configuration, over a parameter dict
-    keyed by the program's parameter names."""
+    keyed by the program's parameter names; each architecture's layers
+    in its module under ``benchmark/archs/``."""
 
     def __init__(self, cfg, params, pr=F32):
-        self.gnn, self.scorer = cfg["GNN"], cfg["edge_mlp_type"]
+        self.cfg = cfg
         self.rate = cfg["drop_rate"]
         self.P = params
         self.pr = pr
 
     def encode(self, x, s, r, n, gen):
         """Scorer embeddings; ``gen`` None: evaluation (no dropout)."""
-        P, pr = self.P, self.pr
-        if self.scorer == "GCN":
-            h = torch.relu(gcn(P, "edge_prob_mlp.gcn1", x, s, r, None, n,
-                               pr))
-            if gen is not None:
-                h = dropout(h, self.rate, gen)
-            h = torch.relu(gcn(P, "edge_prob_mlp.gcn2", h, s, r, None, n,
-                               pr))
-        elif self.scorer == "GSAGE":
-            h = torch.relu(sage(P, "edge_prob_mlp.gcn1", x, s, r, n, pr))
-            if gen is not None:
-                h = dropout(h, self.rate, gen)
-        else:
-            raise NotImplementedError(self.scorer)
-        return pr(h)
+        return self.pr(archs.scorer(self.cfg).encode(self, x, s, r, n, gen))
 
     def head(self, h, s, r, seed, slot0=0):
         rate = 0.0 if seed is None else self.rate
@@ -304,18 +294,7 @@ class Model:
 
     def forward(self, x, s, r, w, n, gen):
         """Backbone logits; ``gen`` None: evaluation (no dropout)."""
-        P, pr = self.P, self.pr
-        if self.gnn == "GCN":
-            h = torch.relu(gcn(P, "gcn1", x, s, r, w, n, pr))
-            if gen is not None:
-                h = dropout(h, self.rate, gen)
-            return gcn(P, "gcn2", h, s, r, w, n, pr)
-        if self.gnn == "GAT":
-            h = torch.relu(gat(P, "GAT_conv1", x, s, r, n, True, pr))
-            if gen is not None:
-                h = dropout(h, self.rate, gen)
-            return gat(P, "GAT_conv2", h, s, r, n, False, pr)
-        raise NotImplementedError(self.gnn)
+        return archs.backbone(self.cfg).forward(self, x, s, r, w, n, gen)
 
 
 # ------------------------------------------------------------------ losses

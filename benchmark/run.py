@@ -6,8 +6,10 @@ as the last line of standard output:
 
 ``--trace 0`` measures the window and reports the cell's end-to-end
 metrics; ``--trace 1`` profiles a stretch of whole epochs (or requests)
-and reports its per-layer metrics. Both then compare what the program
-produced with the plain reference and print each number beside its limit.
+and reports its per-layer metrics, with the program's own spans and
+stamps on where one of them reads them. Both then compare what the
+program produced with the plain reference and print each number beside
+its limit.
 Without a card it exits 2 and prints no result.
 """
 from __future__ import annotations
@@ -61,6 +63,11 @@ def main(argv=None):
               file=sys.stderr)
         return 2
     torch.set_num_threads(4)
+    if args.trace and cell.reads_program():
+        # the stamps are captured into the graphs: on before the set-up
+        from sgs_gnn_tpu_torch.core import spans
+        spans.reset()
+        spans.enable(device_stamps=True)
     run = harness.Run(cell, args.seed, "cuda", t_start=T_START)
     run.setup()
     result = {"correct": False, "attempted": 0, "failed": 0}

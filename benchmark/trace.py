@@ -1,13 +1,15 @@
 """Reading a ``torch.profiler`` trace of a stretch of the window: device
 time by kernel name, device busy time (the union of the intervals in
-which an operation ran on the card) and the idle gaps labelled by what the
-harness was doing on the host. A copy, widened, of ``chip_smoke.py``'s
-``profile_breakdown``."""
+which an operation ran on the card), the idle gaps labelled by what the
+harness, and apart by what the program, was doing on the host, and the
+program's own record of the stretch. A copy, widened, of
+``chip_smoke.py``'s ``profile_breakdown``."""
 from __future__ import annotations
 
 import time
 
 SPAN_PREFIX = "bench."
+STAMP_KERNEL = "stamp_kernel"   # the program's device stamp (csrc/stamp.cu)
 
 
 def span(torch, name):
@@ -28,11 +30,14 @@ def _union(intervals):
 class Trace:
     """What one traced stretch showed. Times in seconds."""
 
-    def __init__(self, kernels, busy_s, window_s, gaps):
+    def __init__(self, kernels, busy_s, window_s, gaps, program=None,
+                 program_gaps=None):
         self.kernels = kernels      # name -> [launches, device seconds]
         self.busy_s = busy_s
         self.window_s = window_s
         self.gaps = gaps            # host span -> idle seconds in it
+        self.program = program      # the program's record of the stretch
+        self.program_gaps = program_gaps or {}  # program span -> idle s
 
     def kernel_seconds(self, names):
         """Device seconds and launches of the kernels whose profiler name
@@ -55,15 +60,38 @@ class Trace:
                                                key=lambda kv: -kv[1][1])[:top]]
 
 
+def label_gaps(busy, host, lo, hi):
+    """Idle seconds between the merged ``busy`` intervals (and, where
+    ``lo`` / ``hi`` are given, before the first and after the last),
+    summed by the innermost of the ``host`` spans (label, start, end)
+    around each gap's middle, or ``outside``. Microseconds in."""
+    edges = ([[lo, lo]] if lo is not None else []) + list(busy) \
+        + ([[hi, hi]] if hi is not None else [])
+    gaps = {}
+    for (_, a), (b, _) in zip(edges[:-1], edges[1:]):
+        if b > a:
+            mid = (a + b) / 2
+            cover = [h for h in host if h[1] <= mid <= h[2]]
+            label = (min(cover, key=lambda h: h[2] - h[1])[0] if cover
+                     else "outside")
+            gaps[label] = gaps.get(label, 0.0) + (b - a) / 1e6
+    return gaps
+
+
 def traced(torch, fn):
     """Run ``fn()`` under the profiler, the card synchronised on both
     sides; the window is the host clock around ``fn()`` and its final
     synchronisation. Idle gaps (and the stretch before the first and after
     the last device operation) are summed by the innermost harness span
-    around their middle."""
+    around their middle, and apart by the innermost program span. The
+    program's record (``core/spans.py``: spans, counters, stamped
+    segments) is reset before the stretch and collected after it; its
+    device annotations and stamp kernels are no device work here."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    from sgs_gnn_tpu_torch.core import spans
     torch.cuda.synchronize()
+    spans.reset()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         with span(torch, "window"):
@@ -71,11 +99,13 @@ def traced(torch, fn):
             fn()
             torch.cuda.synchronize()
             window_s = time.perf_counter() - t0
+    program = spans.collect()
     events = list(prof.events())
-    # the harness's spans also appear on the device's timeline
-    # (annotations): only kernels, copies and fills count
+    # the harness's and the program's spans also appear on the device's
+    # timeline (annotations): only kernels, copies and fills count
     dev = [e for e in events if e.device_type == DeviceType.CUDA
-           and not e.name.startswith(SPAN_PREFIX)]
+           and not e.name.startswith((SPAN_PREFIX, spans.PREFIX))
+           and STAMP_KERNEL not in e.name]
     kernels = {}
     for e in dev:
         name = e.name[:120]
@@ -84,20 +114,14 @@ def traced(torch, fn):
         rec[1] += e.time_range.elapsed_us() / 1e6
     merged = _union((e.time_range.start, e.time_range.end) for e in dev)
     busy = sum(en - st for st, en in merged) / 1e6
-    host = [e for e in events if e.device_type != DeviceType.CUDA
-            and e.name.startswith(SPAN_PREFIX)]
+    host = [e for e in events if e.device_type != DeviceType.CUDA]
+
+    def labelled(prefix):
+        return [(e.name[len(prefix):], e.time_range.start,
+                 e.time_range.end) for e in host if e.name.startswith(prefix)]
     win = [e for e in host if e.name == SPAN_PREFIX + "window"]
     lo = min((e.time_range.start for e in win), default=None)
     hi = max((e.time_range.end for e in win), default=None)
-    edges = ([[lo, lo]] if lo is not None else []) + merged \
-        + ([[hi, hi]] if hi is not None else [])
-    gaps = {}
-    for (_, a), (b, _) in zip(edges[:-1], edges[1:]):
-        if b > a:
-            mid = (a + b) / 2
-            cover = [e for e in host if e.time_range.start <= mid
-                     <= e.time_range.end]
-            label = (min(cover, key=lambda e: e.time_range.elapsed_us())
-                     .name[len(SPAN_PREFIX):] if cover else "outside")
-            gaps[label] = gaps.get(label, 0.0) + (b - a) / 1e6
-    return Trace(kernels, busy, window_s, gaps)
+    return Trace(kernels, busy, window_s,
+                 label_gaps(merged, labelled(SPAN_PREFIX), lo, hi),
+                 program, label_gaps(merged, labelled(spans.PREFIX), lo, hi))
