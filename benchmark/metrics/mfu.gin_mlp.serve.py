@@ -1,0 +1,13 @@
+"""mfu.gin_mlp.serve: ``mfu.serve`` in the GIN + MLP serving cell: the
+model operations of the traced requests (the MLP scorer and K3 over
+every valid edge, one GIN forward per draw; the frozen count of
+``benchmark/archs/``) over (window x the bf16 peak), in %."""
+import importlib.util
+from pathlib import Path
+
+_spec = importlib.util.spec_from_file_location(
+    "benchmark_metric_mfu_serve_base",
+    Path(__file__).with_name("mfu.serve.py"))
+_base = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(_base)
+read = _base.read

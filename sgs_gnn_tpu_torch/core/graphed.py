@@ -27,9 +27,10 @@ every later call with the same key. A capture that fails raises; nothing
 falls back to the eager call.
 
 The kernel wrappers count launches on the host (``ops/_build.LAUNCHES``
-and ``ROUTES``). A capture runs nothing, so the launches its wrappers
-counted are taken out of the counters and kept as the graph's tally, and
-every replay adds the tally back (:func:`capture`, :class:`Captured`).
+and ``ROUTES``), and the aggregation the bytes of its message matrices
+(``BYTES``). A capture runs nothing, so what its wrappers counted is taken
+out of the counters and kept as the graph's tally, and every replay adds
+the tally back (:func:`capture`, :class:`Captured`).
 The counters then read as they would after the same eager calls. What a
 kernel counts on the card (K1's slab chunks per mode) the replay counts
 itself.
@@ -138,14 +139,17 @@ def _diff(after: collections.Counter, before: collections.Counter):
 class Captured:
     """A captured graph, its static outputs, and the kernel launches its
     capture recorded (``launches`` by kernel, ``routes`` by (kernel,
-    route)); :meth:`replay` adds them to ``ops/_build``'s counters."""
+    route), ``nbytes`` by (kernel, route)); :meth:`replay` adds them to
+    ``ops/_build``'s counters."""
 
     def __init__(self, graph, outputs, launches: collections.Counter,
-                 routes: collections.Counter, generators=()):
+                 routes: collections.Counter, generators=(),
+                 nbytes: Optional[collections.Counter] = None):
         self.graph = graph
         self.outputs = outputs
         self.launches = launches
         self.routes = routes
+        self.nbytes = collections.Counter() if nbytes is None else nbytes
         self.generators = tuple(generators)   # registered with the graph
         self.replays = 0
 
@@ -153,6 +157,7 @@ class Captured:
         self.graph.replay()
         _build.LAUNCHES.update(self.launches)
         _build.ROUTES.update(self.routes)
+        _build.BYTES.update(self.nbytes)
         self.replays += 1
         return self.outputs
 
@@ -162,29 +167,29 @@ def capture(fn: Callable[[], Any], pool=None,
             graph=None, context: Optional[Callable] = None) -> Captured:
     """Capture ``fn()`` into a CUDA graph (``graph``, a new
     ``torch.cuda.CUDAGraph`` by default) with ``generators`` registered,
-    in the memory ``pool``. The launches the wrappers counted while
-    capturing become the graph's tally and leave the counters, also when
-    the capture raises. ``context(graph, pool)`` opens the capture
-    (``torch.cuda.graph``; a test passes its own with a fake graph)."""
+    in the memory ``pool``. The launches, routes and bytes the wrappers
+    counted while capturing become the graph's tally and leave the
+    counters, also when the capture raises. ``context(graph, pool)`` opens
+    the capture (``torch.cuda.graph``; a test passes its own with a fake
+    graph)."""
     graph = torch.cuda.CUDAGraph() if graph is None else graph
     for gen in generators:
         graph.register_generator_state(gen)
     if context is None:
         def context(gr, pl):
             return torch.cuda.graph(gr, pool=pl)
-    launches = collections.Counter(_build.LAUNCHES)
-    routes = collections.Counter(_build.ROUTES)
+    before = [(c, collections.Counter(c)) for c in
+              (_build.LAUNCHES, _build.ROUTES, _build.BYTES)]
     try:
         with context(graph, pool):
             outputs = fn()
     finally:
-        tally = (_diff(_build.LAUNCHES, launches),
-                 _diff(_build.ROUTES, routes))
-        _build.LAUNCHES.clear()
-        _build.LAUNCHES.update(launches)
-        _build.ROUTES.clear()
-        _build.ROUTES.update(routes)
-    return Captured(graph, outputs, *tally, generators=generators)
+        launches, routes, nbytes = [_diff(c, c0) for c, c0 in before]
+        for c, c0 in before:
+            c.clear()
+            c.update(c0)
+    return Captured(graph, outputs, launches, routes, generators=generators,
+                    nbytes=nbytes)
 
 
 class Graphs:

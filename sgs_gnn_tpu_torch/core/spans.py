@@ -17,7 +17,10 @@ synchronise. :func:`enable` turns them on:
     here too and count whether or not the module is on
     (``ops/_build`` keeps its names for them). ``ROUTES[("spmm", route)]``
     counts the aggregation's calls per route (``ops/spmm.py``
-    ``auto_route``: "k8_tiles" or "gather_k1"), not launches.
+    ``auto_route``: "k8_tiles" or "gather_k1"), not launches. ``BYTES``
+    counts bytes per (kernel, route) alike: ``BYTES[("spmm",
+    "gather_k1")]`` the (E, F) message matrices that route writes in its
+    forward, E x F x itemsize a call (nothing on "k8_tiles").
   * **Device stamps** (``enable(device_stamps=True)``). ``stamp(segment,
     device)`` enqueues a one-thread kernel (``csrc/stamp.cu``) on the
     device's current stream: it reads the device's ``%globaltimer`` and
@@ -59,6 +62,7 @@ MAX_SEGMENTS = 64           # rows of a device's accumulator
 
 LAUNCHES: collections.Counter = collections.Counter()
 ROUTES: collections.Counter = collections.Counter()
+BYTES: collections.Counter = collections.Counter()
 
 _NULL = contextlib.nullcontext()
 _records: List[list] = []   # [name, id, parent, t0_ns, t1_ns]
@@ -66,6 +70,7 @@ _open: List[int] = []       # indices of the open spans, innermost last
 _counters: collections.Counter = collections.Counter()
 _launches0: collections.Counter = collections.Counter()
 _routes0: collections.Counter = collections.Counter()
+_bytes0: collections.Counter = collections.Counter()
 _generation = 0             # bumped by reset(): spans opened before it
 _phase = ""
 _rows: Dict[str, int] = {}  # segment -> accumulator row
@@ -98,6 +103,8 @@ def reset() -> None:
     _launches0.update(LAUNCHES)
     _routes0.clear()
     _routes0.update(ROUTES)
+    _bytes0.clear()
+    _bytes0.update(BYTES)
     _generation += 1
     for acc, last in _acc.values():
         acc.zero_()
@@ -231,7 +238,8 @@ def collect() -> dict:
     calls, total_s, self_s), ``records`` (name, id, parent, t0_ns, t1_ns;
     finished spans), ``counters`` (name -> count; the kernel launches as
     ``kernels.launches.<kernel>``, the routes as
-    ``kernels.routes.<kernel>.<route>``) and ``segments`` (name -> stamps,
+    ``kernels.routes.<kernel>.<route>``, the bytes as
+    ``kernels.bytes.<kernel>.<route>``) and ``segments`` (name -> stamps,
     seconds). Reads the device accumulators: synchronise first."""
     done = [r for r in _records if r[4] is not None]
     child_ns = collections.Counter()
@@ -254,6 +262,9 @@ def collect() -> dict:
     for (k, route), v in ROUTES.items():
         if v != _routes0[k, route]:
             counters[f"kernels.routes.{k}.{route}"] = v - _routes0[k, route]
+    for (k, route), v in BYTES.items():
+        if v != _bytes0[k, route]:
+            counters[f"kernels.bytes.{k}.{route}"] = v - _bytes0[k, route]
     segments: Dict[str, dict] = {}
     tables = [acc.cpu() for acc, _ in _acc.values()]
     for name, row in _rows.items():

@@ -50,6 +50,7 @@ import math
 import torch
 from torch import nn
 
+from ..core import spans
 from ..ops.dense_graph import DenseEdges
 from ..ops.edge_gather import gather_rows
 from ..ops.gcn_norm import gcn_norm
@@ -315,7 +316,9 @@ class GINConv(nn.Module):
     """GIN layer with eps = 0: MLP(x_i + sum_{j->i} x_j), the MLP
     Linear-ReLU-Linear in the compute dtype, output f32. The sum is
     ``spmm(backend="auto")``: messages in x's dtype, K1 in f32.
-    ``edge_weight`` is ignored."""
+    ``edge_weight`` is ignored. With ``core/spans``' device stamps on, the
+    sum is the segment ``aggregate`` (the work before it is credited to
+    ``backbone``); its backward stays in the backward's segments."""
 
     def __init__(self, in_features: int, hidden: int, features: int,
                  dtype: torch.dtype = torch.float32, generator=None):
@@ -326,6 +329,7 @@ class GINConv(nn.Module):
 
     def forward(self, x, senders, receivers, edge_weight=None,
                 exchange=None, edge_mask=None):
+        spans.stamp("backbone", x.device)
         if exchange is not None or edge_mask is not None:
             x_src = exchange(x) if exchange is not None else x
             agg = spmm(senders, receivers,
@@ -335,6 +339,7 @@ class GINConv(nn.Module):
             agg = (senders.adj.to(x.dtype) @ x).float()
         else:
             agg = spmm(senders, receivers, None, x, x.shape[0])
+        spans.stamp("aggregate", x.device)
         z = x + agg
         z = torch.relu(linear(z, self.mlp_lin1, self.dtype))
         return linear(z, self.mlp_lin2, self.dtype).float()

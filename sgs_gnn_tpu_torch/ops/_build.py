@@ -22,8 +22,10 @@ by ``ops/spmm.py`` ``spmm_plan``); ``ops/spmm.py`` adds ("spmm", route),
 calls of its "auto" backend per route, which launch no kernel of that
 name. What a kernel picks from
 the data, not the host, it counts on the card itself (K1's slab chunks per
-mode: ``ops/scatter.py`` ``slab_chunk_modes``). Both counters are
-``core/spans.py``'s ``LAUNCHES`` and ``ROUTES`` (the same objects). With
+mode: ``ops/scatter.py`` ``slab_chunk_modes``). ``BYTES`` counts bytes
+per (kernel, route): ("spmm", "gather_k1"), the message matrices of the
+"auto" backend's gather route. The three counters are ``core/spans.py``'s
+``LAUNCHES``, ``ROUTES`` and ``BYTES`` (the same objects). With
 ``core/spans`` on, the compile is the span ``kernels.build`` (counted in
 ``kernels.builds``) and the library's load the span ``kernels.load``.
 ``csrc/stamp.cu`` is ``core/spans.py``'s device stamp, launched there and
@@ -54,6 +56,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # the counters live in core/spans.py (the same objects)
 LAUNCHES: collections.Counter = spans.LAUNCHES
 ROUTES: collections.Counter = spans.ROUTES
+BYTES: collections.Counter = spans.BYTES
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int

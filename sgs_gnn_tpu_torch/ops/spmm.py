@@ -18,7 +18,9 @@ K8 instead (:func:`auto_route`): the gather, the weight multiply and K1
 write, scale and re-read an (E, F) message matrix that K8 never forms.
 Its products and sums are f32, never coarser than the bf16 messages. A
 call that records a graph keeps the route above and its VJP;
-``ROUTES[("spmm", route)]`` counts each "auto" call on the route it took.
+``ROUTES[("spmm", route)]`` counts each "auto" call on the route it took,
+and ``BYTES[("spmm", "gather_k1")]`` the E x F x itemsize bytes of the
+message matrix each gather writes.
 
 ``"fused"`` (the JAX ``backend="pallas"``, spmm.py:116-120, over
 ``spmm_pallas.py``): one pass with no (E, F) message matrix in device
@@ -195,6 +197,8 @@ def spmm(senders, receivers, weights, x, num_nodes: int,
                                  device=x.device)
         return _SpmmFused.apply(senders.int(), receivers.int(), weights, x,
                                 num_nodes)
+    _build.BYTES["spmm", route] += (senders.shape[0] * x.shape[1]
+                                    * x.element_size())
     msgs = gather_rows(x, senders)
     if weights is not None:
         msgs = msgs * weights[:, None].to(x.dtype)

@@ -1691,3 +1691,52 @@ def test_stamped_predict_gives_the_unstamped_outputs(card):
     for layer in ("between", "scorer", "sampler", "backbone"):
         assert seg[f"serve.{layer}"]["s"] > 0, (layer, seg)
     assert sum(v["s"] for v in seg.values()) <= wall
+
+
+def test_stamped_gin_mlp_predict_gives_the_unstamped_outputs(card):
+    """GIN + MLP ``predict`` in f32 (every GIN sum on the gather route and
+    K1): the logits with the stamps on within the graphed route's limit of
+    those with them off (K1's f32 atomics may add in another order when
+    the stamps shift the kernels' timing; on the CPU they are bit-equal,
+    ``tests/test_torch_gin_mlp.py``); each draw's two sums stamped
+    ``serve.aggregate`` (> 0); the message bytes counted on each replay,
+    E x F x 4 a sum, with the stamps on and off."""
+    from sgs_gnn_tpu_torch import Config, Graph, get_model, make_predictor
+    from sgs_gnn_tpu_torch.core import spans
+    from sgs_gnn_tpu_torch.data import degree_prior
+    rng = np.random.default_rng(1)
+    n, e, f, c = 300, 20_000, 24, 5
+    ei = rng.integers(0, n, (2, e)).astype(np.int32)
+    g = Graph.build(rng.normal(size=(n, f)).astype(np.float32), ei,
+                    rng.integers(0, c, n).astype(np.int32),
+                    prob=degree_prior(ei[0], ei[1], n), num_classes=c,
+                    sort_by_receiver=True, device=card)
+    cfg, q = Config(nhid=32, num_samples_eval=4), 4_000
+    tm = get_model("GIN", f, cfg.nhid, c, cfg.drop_rate, "MLP",
+                   dtype=cfg.dtype, device=card,
+                   generator=torch.Generator().manual_seed(0))
+    runs = []
+    for stamped in (False, True):
+        if stamped:
+            _stamps_on()
+        try:
+            predict = make_predictor(cfg, tm, q)
+            gen = torch.Generator(device=card)
+            out = [predict(g, gen.manual_seed(s))[0] for s in (1, 2)]
+            torch.cuda.synchronize()
+            spans.reset()
+            out += [predict(g, gen.manual_seed(s))[0] for s in (1, 2, 3)]
+            torch.cuda.synchronize()
+            got = spans.collect()
+        finally:
+            _stamps_off()
+        runs.append((out, got))
+    (off, off_rec), (on, on_rec) = runs
+    _close_rel(on, off, "gin predict")
+    assert off_rec["segments"] == {}
+    seg = on_rec["segments"]
+    assert seg["serve.aggregate"]["stamps"] == 3 * cfg.num_samples_eval * 2
+    assert seg["serve.aggregate"]["s"] > 0 and seg["serve.backbone"]["s"] > 0
+    for rec in (off_rec, on_rec):
+        assert rec["counters"]["kernels.bytes.spmm.gather_k1"] == \
+            3 * cfg.num_samples_eval * q * (f + cfg.nhid) * 4

@@ -15,7 +15,9 @@ segments; the idle gaps labelled by the harness's spans and by the
 program's (``spans.label_gaps``); the stamped device time of the train
 graphs (every segment but ``between``) beside the profiler's device time of
 the same replays; and the readings the per-layer metrics of this tracing
-would take (``optimizer_ms.train`` ... ``setup_partition_s``), and the
+would take (``optimizer_ms.train`` ... ``setup_partition_s``; GIN's
+``aggregate_ms`` and ``message_gib``, per trained step or request, from
+the ``aggregate`` stamps and ``kernels.bytes.spmm.gather_k1``), and the
 share of the window's GCN aggregations that took K8 (``spmm_k8_share``,
 from ``kernels.routes.spmm.*``). With
 ``--check`` the run is then held to the plain reference as
@@ -148,6 +150,7 @@ def readings(run, tr, setup):
         sampled = facts["epochs"] * run.plan.count(2)
         out["optimizer_ms.train"] = 1e3 * seg_s("step.optimizer") / steps
         out["backbone_ms.train"] = 1e3 * seg_s("step.backbone") / steps
+        out["aggregate_ms.train"] = 1e3 * seg_s("step.aggregate") / steps
         if run.cell.mode == "learned":
             out["scorer_ms.train"] = 1e3 * seg_s(
                 "step.scorer", "step.sampler") / sampled
@@ -165,6 +168,7 @@ def readings(run, tr, setup):
         n = facts["requests"]
         out["sample_ms.serve"] = 1e3 * seg_s("serve.sampler") / n
         out["backbone_ms.serve"] = 1e3 * seg_s("serve.backbone") / n
+        out["aggregate_ms.serve"] = 1e3 * seg_s("serve.aggregate") / n
         out["host_idle_ms.serve"] = 1e3 * idle / n
         out["stamps_per_request"] = sum(
             v["stamps"] for k, v in seg.items()
@@ -174,6 +178,9 @@ def readings(run, tr, setup):
     k8, k1 = (counters.get(f"kernels.routes.spmm.{r}", 0)
               for r in ("k8_tiles", "gather_k1"))
     out["spmm_k8_share"] = k8 / (k8 + k1) if k8 + k1 else None
+    per = facts.get("steps") or facts.get("requests")
+    out["message_gib"] = counters.get(
+        "kernels.bytes.spmm.gather_k1", 0) / 2 ** 30 / per
     return out
 
 
