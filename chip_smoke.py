@@ -258,6 +258,9 @@ KERNEL_FUNCS = {
     # the gather route; the tile route's binning (count, scatter) and tiles
     "spmm_fused": ("spmm_kernel", "spmm_bin_count_kernel",
                    "spmm_bin_scatter_kernel", "spmm_tile_kernel"),
+    # the ordered top-q draw: keys and three digit passes, count, write
+    "topq": ("topq_keys_kernel", "topq_pass_kernel", "topq_count_kernel",
+             "topq_write_kernel"),
 }
 SPMM_BIN_FUNCS = ("spmm_bin_count_kernel", "spmm_bin_scatter_kernel")
 # The learned pipelines, each with bench.py's flags, and the launches of one
@@ -278,7 +281,9 @@ SPMM_BIN_FUNCS = ("spmm_bin_count_kernel", "spmm_bin_scatter_kernel")
 #     with the receivers sorted, K5): K1 8 + 6 + 2, K2 8. Pass 1's two
 #     aggregations take K8 in place of K1 where their shape takes tiles
 #     (``pipeline_launches``; on the card at the bench partition's size).
-_ROWS = {"scatter_add": 14, "segment_sum_scalar": 6}
+# Every pipeline draws twice a step (the conditional gate's random
+# subgraph and the learned sample): the ordered top-q kernel, twice.
+_ROWS = {"scatter_add": 14, "segment_sum_scalar": 6, "topq": 2}
 _UNFUSED = dict(_ROWS, scatter_add=15, scatter_add_sorted=1)
 PIPELINES = {
     "hybrid_rescore": (dict(pipeline="hybrid"), TRAIN_STEPS, dict(
@@ -292,7 +297,7 @@ PIPELINES = {
                                 hybrid_checkpoint=True), PIPELINE_STEPS,
                            _UNFUSED),
     "two_pass": (dict(pipeline="two_pass"), PIPELINE_STEPS, dict(
-        scatter_add=16, segment_sum_scalar=8, score_head_sampled=1,
+        scatter_add=16, segment_sum_scalar=8, topq=2, score_head_sampled=1,
         score_head_sampled_banded=1, score_head_bwd=1)),
 }
 GRAD_CHECKED = ("hybrid_rescore", "straight_through", "hybrid_exact")
@@ -311,7 +316,8 @@ GRAD_CHECKED = ("hybrid_rescore", "straight_through", "hybrid_exact")
 #     the backward of three (N,) gathers (denominators, the source and
 #     destination attention terms) = (4, 8); Cheb K=1 no graph = (0, 0).
 #   plus reg2's two row gathers (K1 backward); the head is K6 over every
-#   tile slot, K3 with a sorted side and K5, as in the train phase.
+#   tile slot, K3 with a sorted side and K5, and two draws, as in the train
+#   phase.
 # So GIN + MLP and Cheb + MLP launch no K2, Cheb + MLP K1 only for reg2.
 MODEL_SCORER_ROWS = {"MLP": (0, 0), "GSAGE": (1, 1), "GCN": (4, 2)}
 MODEL_BACKBONE_ROWS = {"GCN": (4, 2), "GIN": (3, 0), "GAT": (4, 8),
@@ -340,7 +346,7 @@ def model_launches(gnn, scorer):
     (s1, s2), (b1, b2) = MODEL_SCORER_ROWS[scorer], MODEL_BACKBONE_ROWS[gnn]
     out = dict(scatter_add=s1 + 2 * b1 + 2, segment_sum_scalar=s2 + 2 * b2,
                score_head_tiles=1, score_head_sampled_banded=1,
-               score_head_bwd=1)
+               score_head_bwd=1, topq=2)
     return {k: v for k, v in out.items() if v}
 # GCNConv(backend="fused"), two layers forward + backward: K2 once each, K8
 # forward and dx once each
@@ -353,7 +359,8 @@ FUSED_LAUNCHES = {"segment_sum_scalar": 2, "spmm_fused": 4}
 # re-scoring pass on the winners' own (N, N) build too) and the random
 # backbone forward aggregate with (N, N) products and launch no K1 or K2.
 # What stays: the learned backbone's rows (MODEL_BACKBONE_ROWS) and reg2's
-# two row gathers (K1 2); the head kernels as on the sparse route.
+# two row gathers (K1 2); the head kernels and the two draws as on the
+# sparse route.
 DENSE_PATHS = {"hybrid_rescore": ("hybrid_rescore", "GCN"),
                "two_pass": ("two_pass", "GCN"),
                "GAT+GCN": ("hybrid_rescore", "GAT")}
@@ -914,7 +921,43 @@ def phase_kernels(torch, g):
             bound_by="operations"))
         emit("kernel", name="score_head_sampled", **cases[-1])
     results["score_head_sampled"] = dict(cases[0], cases=cases)
+    results["topq"] = topq_case(torch, g, gen)
     return results
+
+
+def topq_case(torch, g, gen):
+    """The ordered top-q draw of the serving path (q of the partition's
+    edges, Gumbel keys of its log-weights, its edge mask) against the
+    plain version: the same ids and keys bit for bit, the kernels' device
+    time, the plain version's and ``torch.topk``'s (the draw's library
+    call before the kernel; it returns the winners sorted by key)."""
+    from sgs_gnn_tpu_torch.ops import sampling_ops as so
+    e = g.num_edges
+    logw = so.log_weights(torch.rand(e, generator=gen, device=gen.device))
+    u = torch.rand(e, generator=gen, device=gen.device)
+    mask = g.edge_mask
+    keys = so.draw_keys(u, logw, mask)
+    so.reset_topq_ties()
+    ids, scratch = so._topq_cuda(u, Q, logw, mask)
+    img = scratch[-e:]
+    bits = torch.where(img < 0, img ^ torch.iinfo(torch.int32).min, ~img)
+    keys_equal = bool(torch.equal(bits, (keys + 0.0).view(torch.int32)))
+    ids_equal = bool(torch.equal(ids, so.topq_ordered_plain(keys, Q)))
+    check(keys_equal and ids_equal, f"topq: keys equal {keys_equal}, ids "
+                                    f"equal {ids_equal}")
+    # logw and u read (4 bytes each), the mask (1), the ids written
+    nbytes = 9 * e + 4 * Q
+    k = dict(case=f"E={e} q={Q} Gumbel keys, edge mask", max_abs_err=0.0,
+             tolerance="ids and keys bit for bit", ties=so.topq_ties(),
+             **timed(torch, "topq",
+                     lambda: so.topq_ordered(u, Q, logw=logw, mask=mask)),
+             plain_ms=cuda_ms(torch, lambda: so.topq_ordered_plain(keys, Q),
+                              iters=5),
+             library_ms=cuda_ms(torch, lambda: torch.topk(keys, Q)),
+             library="torch.topk(keys, q) (sorted by key)",
+             bound_ms=nbytes / HBM_BPS * 1e3, bound_by="bytes")
+    emit("kernel", name="topq", **k)
+    return k
 
 
 def _rel_max(a, b):
@@ -1365,7 +1408,7 @@ def phase_serve(torch, arrays):
     aggs = forward_rows(4 * (1 - k8_all) + 2 * DRAWS * (1 - k8_q),
                         4 * k8_all + 2 * DRAWS * k8_q)
     expect = dict(aggs, segment_sum_scalar=2 + 2 + 2 * DRAWS,
-                  score_head_sampled=2)
+                  score_head_sampled=2, topq=1 + DRAWS)
     check(launches == expect, f"launch counts {launches}, expected {expect}")
     check(sp.probs.shape == (N_EDGES,) and sp.probs.dtype == torch.float32,
           f"probs {tuple(sp.probs.shape)} {sp.probs.dtype}")
@@ -2353,7 +2396,7 @@ PARALLEL_RUNS = (("learned", "data_parallel", ("--data_parallel", "on")),
                  ("learned", "halo", ("--halo", "true")),
                  ("full", "halo", ("--halo", "true")))
 HALO_LEARNED = ("scatter_add", "segment_sum_scalar", "score_head_sampled",
-                "score_head_bwd")
+                "score_head_bwd", "topq")
 
 
 def phase_parallel_experiment(torch, ds, results_dir):
@@ -2362,8 +2405,9 @@ def phase_parallel_experiment(torch, ds, results_dir):
     launch counter at 0 just before it: an ``experiment`` line each
     (route, world, plan, epoch and eval times, losses, F1s, launches per
     epoch). Learned data_parallel must launch K1-K6 (the tile index
-    engages on the card); learned halo K1, K2, K3 and K5 (the head runs
-    on the extended table; no tile index); full halo K1 and K2 only.
+    engages on the card); learned halo K1, K2, K3, K5 (the head runs on
+    the extended table; no tile index) and the draws; full halo K1 and
+    K2 only.
     Returns {path: launches}."""
     from sgs_gnn_tpu_torch.run.cli import config_from_args
     paths = _halo_parity(torch, ds)
@@ -2681,22 +2725,24 @@ def _check_launches(mode, route, launches, model="GCN+GCN"):
     eval, which has no backward, aggregates its GCN layers on K8 on the
     card (every part of the experiment graph, ~1.8k nodes and ~0.2-1M
     edges, takes tiles: ``k8_forward``) and on K1 elsewhere; GAT and
-    GraphSAGE aggregate on K1 and K2 alone."""
+    GraphSAGE aggregate on K1 and K2 alone. The random and edge modes'
+    draws run the ordered top-q kernel on the card."""
     heads = {k: launches.get(k, 0) for k in HEADS}
     check(all(launches.get(k, 0) > 0 for k in ROWS),
           f"{mode} {route}: K1/K2 not launched: {launches}")
     gcn = "GCN" in model.split("+")
-    evals = ({"spmm_fused"} if gcn and str(DEVICE).startswith("cuda")
-             else set())
+    card = str(DEVICE).startswith("cuda")
+    evals = {"spmm_fused"} if gcn and card else set()
+    draws = {"topq"} if mode in ("random", "edge") and card else set()
     check(evals <= set(launches), f"{mode} {route}: the eval did not "
                                   f"aggregate on K8: {launches}")
     if mode == "learned":
         check(all(heads.values()), f"learned {route}: a head kernel (K3-K6) "
                                    f"was not launched: {launches}")
     else:
-        check(set(launches) == set(ROWS) | evals,
-              f"{mode} {route}: launched more than K1, K2 and the eval's "
-              f"K8: {launches}")
+        check(set(launches) == set(ROWS) | evals | draws,
+              f"{mode} {route}: launched more than K1, K2, the eval's "
+              f"K8 and the draws: {launches}")
 
 
 def _compare_routes(mode, graphed, eager, model="GCN+GCN"):
@@ -3123,16 +3169,18 @@ def reddit_launches(plan, draws, k8):
       eval, per sampled batch the scorer's encoder over every edge (2 GCN
         layers: K1 2, K2 2), K3 over every edge, then per draw the
         backbone (K1 2, K2 2); per small batch the backbone once (K1 2,
-        K2 2). The eval has no backward: where ``k8`` (every part here:
-        ~2.3k nodes, q = 200,000 and 0.59-0.78M edges take tiles) its
-        aggregations take K8 in place of K1."""
+        K2 2), each draw one ordered top-q launch. The eval has no
+        backward: where ``k8`` (every part here: ~2.3k nodes, q = 200,000
+        and 0.59-0.78M edges take tiles) its aggregations take K8 in place
+        of K1."""
     big, small = plan["big"], plan["small"]
     train = {k: v * big for k, v in PIPELINES["hybrid_rescore"][2].items()}
     train["scatter_add"] += 4 * small
     train["segment_sum_scalar"] += 2 * small
     rows = (2 + 2 * draws) * big + 2 * small
     return train, dict(forward_rows(rows * (1 - k8), rows * k8),
-                       segment_sum_scalar=rows, score_head_sampled=big)
+                       segment_sum_scalar=rows, score_head_sampled=big,
+                       topq=draws * big)
 
 
 def phase_reddit_scale(torch):
@@ -3546,7 +3594,7 @@ def phase_embeddings(torch, arrays):
 # draws); limits the grad_check's bf16 ones (1% on the loss, GRAD_REL_TOL
 # per gradient), since the unfused head rounds to bf16 where K3 and K5
 # keep f32 (ROADMAP §3), with a second sequential copy's gap beside them.
-TP_LAUNCHES = {"scatter_add": 16, "segment_sum_scalar": 6}
+TP_LAUNCHES = {"scatter_add": 16, "segment_sum_scalar": 6, "topq": 2}
 TP_HEAD_KERNELS = ("score_head_sampled", "score_head_sampled_banded",
                    "score_head_bwd", "score_head_tiles")
 TP_LOSS_RTOL = 1e-2

@@ -2,13 +2,15 @@
 
 Learned mode: the edge scorer runs in evaluation semantics (no dropout),
 so its output is the same for every draw: it is computed once per batch,
-then ``cfg.num_samples_eval`` draws of q edges each feed the backbone and
-the logits are averaged on the device. Each split reports (micro-F1 x count,
-count), so ``aggregate_eval`` weights partitions by their mask sizes as the
-reference does. The random and edge modes average the logits of
+with the distribution's normalisation and log-weights
+(``sparsify/sampling.py`` ``edge_sampler``), then ``cfg.num_samples_eval``
+draws of q edges each feed the backbone and the logits are averaged on the
+device. Each split reports (micro-F1 x count, count), so ``aggregate_eval``
+weights partitions by their mask sizes as the reference does. The random and edge modes average the logits of
 ``num_samples_eval`` uniform or degree-prior draws of q edges (unweighted);
 the full mode, ``force_small`` and E <= q run the backbone once on the
-whole graph. No new kernel: K3 scores, K1 and K2 run the backbone.
+whole graph. K3 scores, the ordered top-q kernel draws, K1, K2 and K8 run
+the backbone.
 
 ``make_scan_eval_step`` runs the eval of every batch as replays of CUDA
 graphs, one per (shape class, small flag), the twin of the JAX
@@ -31,7 +33,7 @@ from ..core import spans
 from ..core.config import Config
 from ..core.graph import Graph
 from ..core.graphed import Graphs, ShapeClasses
-from ..sparsify.sampling import (random_edges, sample_edges,
+from ..sparsify.sampling import (edge_sampler, random_edges,
                                  sample_prior_edges)
 from ..train.losses import micro_f1
 
@@ -71,9 +73,9 @@ def make_eval_step(cfg: Config, model, q: int, force_small: bool = False):
             probs = model.score_edges(g.x, g.senders, g.receivers, g.senders,
                                       g.receivers, True)
             spans.stamp("scorer", g.x.device)
-            logits = ensemble(g, lambda: sample_edges(
-                generator, probs, g.prob, q, cfg.degree_bias_coef,
-                istest=True, edge_mask=g.edge_mask))
+            draw = edge_sampler(probs, g.prob, q, cfg.degree_bias_coef,
+                                istest=True, edge_mask=g.edge_mask)
+            logits = ensemble(g, lambda: draw(generator))
         elif mode == "random":
             logits = ensemble(g, lambda: (random_edges(
                 generator, g.num_edges, q, edge_mask=g.edge_mask), None))

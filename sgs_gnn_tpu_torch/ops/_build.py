@@ -18,12 +18,15 @@ went through the kernels. ``ROUTES`` counts them per (kernel, route) where a
 wrapper dispatches one kernel name to several routes (K1: "slab" or
 "direct", K2: "shared" or "global", by ``ops/scatter.py``'s plans; K5:
 "tensor_cores" for bf16 h, "cuda_cores" for f32; K8: "tiles" or "gather",
-by ``ops/spmm.py`` ``spmm_plan``); ``ops/spmm.py`` adds ("spmm", route),
+by ``ops/spmm.py`` ``spmm_plan``; the ordered top-q draw "topq":
+"gumbel" or "uniform", its key formula, counted on the CPU too);
+``ops/spmm.py`` adds ("spmm", route),
 calls of its "auto" backend per route, which launch no kernel of that
 name. What a kernel picks from
 the data, not the host, it counts on the card itself (K1's slab chunks per
-mode: ``ops/scatter.py`` ``slab_chunk_modes``). ``BYTES`` counts bytes
-per (kernel, route): ("spmm", "gather_k1"), the message matrices of the
+mode: ``ops/scatter.py`` ``slab_chunk_modes``; the draws that broke a tie
+at the threshold: ``ops/sampling_ops.py`` ``topq_ties``). ``BYTES`` counts
+bytes per (kernel, route): ("spmm", "gather_k1"), the message matrices of the
 "auto" backend's gather route. The three counters are ``core/spans.py``'s
 ``LAUNCHES``, ``ROUTES`` and ``BYTES`` (the same objects). With
 ``core/spans`` on, the compile is the span ``kernels.build`` (counted in
@@ -49,7 +52,8 @@ from ..core import spans
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("scatter.cu", "segment_sum.cu", "score_sampled.cu",
-           "score_tiles.cu", "scatter_sorted.cu", "spmm.cu", "stamp.cu")
+           "score_tiles.cu", "scatter_sorted.cu", "spmm.cu", "stamp.cu",
+           "topq.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -80,6 +84,7 @@ _SIGNATURES = {
     "sgs_scatter_add_sorted": [_P, _I, _P, _P, _L, _I, _I, _I, _I, _I, _P],
     "sgs_spmm_fused": [_P, _P, _P, _P, _I, _P, _L, _I, _I, _I, _I, _P, _P],
     "sgs_stamp": [_P, _P, _I, _P],
+    "sgs_topq": [_P, _P, _P, _L, _L, _P, _L, _P, _P],
 }
 
 
@@ -154,6 +159,8 @@ def library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.sgs_error_string.argtypes = [ctypes.c_int]
     lib.sgs_error_string.restype = ctypes.c_char_p
+    lib.sgs_topq_scratch_words.argtypes = [ctypes.c_longlong]
+    lib.sgs_topq_scratch_words.restype = ctypes.c_longlong
     return lib
 
 

@@ -37,7 +37,7 @@ import torch
 from ..core.config import Config
 from ..core.graph import Graph
 from ..core import graphed, spans
-from ..sparsify.sampling import sample_edges
+from ..sparsify.sampling import edge_sampler, sample_edges
 
 
 class SparsifiedGraph(NamedTuple):
@@ -116,11 +116,11 @@ def make_predictor(cfg: Config, model, q: int):
             return logits, torch.argmax(logits, dim=-1)
         probs = _score_all(model, g)
         spans.stamp("scorer", g.x.device)
+        draw = edge_sampler(probs, g.prob, q, cfg.degree_bias_coef,
+                            istest=True, edge_mask=g.edge_mask)
         total = None
         for _ in range(n_draws):
-            idx, w = sample_edges(generator, probs, g.prob, q,
-                                  cfg.degree_bias_coef, istest=True,
-                                  edge_mask=g.edge_mask)
+            idx, w = draw(generator)
             spans.stamp("sampler", g.x.device)
             out = model(g.x, g.senders[idx], g.receivers[idx], w,
                         deterministic=True)

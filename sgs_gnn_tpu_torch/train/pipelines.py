@@ -112,14 +112,13 @@ def _aux_columns(aux):
 
 
 def _sample_sorted(cfg: Config, g: Graph, generator, probs, q: int):
-    """Sample q edge ids from detached ``probs``; with ``sorted_head`` on a
-    receiver-sorted edge list, sort them (ascending edge ids sort the
-    sampled receivers exactly) and name the receivers as the head's sorted
-    side. Returns (idx, sorted_side)."""
+    """Sample q edge ids from detached ``probs``; the draw's ids ascend, so
+    on a receiver-sorted edge list with ``sorted_head`` the receivers are
+    the head's sorted side. Returns (idx, sorted_side)."""
     idx, _ = sample_edges(generator, probs, g.prob, q, cfg.degree_bias_coef,
                           edge_mask=g.edge_mask)
     if cfg.sorted_head != "off" and g.receiver_band > 0:
-        return torch.sort(idx).values, "receivers"
+        return idx, "receivers"
     return idx, ""
 
 
@@ -140,12 +139,9 @@ def _rescore(cfg: Config, model, q: int, g: Graph, generator, prop_s,
         spans.stamp("scorer", dev)
         idx_t, _ = sample_edges(generator, probs_tiles, g.tile_prob, q,
                                 cfg.degree_bias_coef, edge_mask=g.tile_mask)
-        sorted_side = ""
-        if cfg.sorted_head != "off":
-            # ascending tile slots put the senders in near-sorted order
-            # (the layout is sender-tile-major)
-            idx_t = torch.sort(idx_t).values
-            sorted_side = "senders"
+        # the draw's ascending tile slots put the senders in near-sorted
+        # order (the layout is sender-tile-major)
+        sorted_side = "senders" if cfg.sorted_head != "off" else ""
         # validity from tile space: padding slots map to edge id 0
         sel = _aux_columns(g.tile_aux[idx_t])
     else:

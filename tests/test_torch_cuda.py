@@ -20,6 +20,7 @@ there, so without the repository's conftest):
 """
 import collections
 import importlib
+import re
 import time
 
 import numpy as np
@@ -1570,6 +1571,18 @@ def test_learned_beats_random_and_full_on_card():
 # outputs of one captured without them. Where two unstamped runs agree bit
 # for bit the stamped one must too; where the order of f32 atomics differs
 # between runs, it stays within the graphed route's own limits.
+#
+# A graphed training epoch is held otherwise: its low bits differ from run
+# to run, with stamps or without. K1's "sort" mode adds each chunk's slab
+# into the output with f32 atomics in the order its blocks finish, so no
+# two identical calls agree bit for bit (40 distinct sums of 40 on an
+# H100), and a loss or a parameter that this noise reaches only through
+# rounding agrees between two runs as often as not and then differs in a
+# third (16 runs: 3-6 distinct losses among the unstamped runs, the
+# stamped runs' among them). Two runs that agree there say nothing of a
+# third. So the epoch is held to what the stamps may not change: the same
+# kernels, as many times each, stamps aside; and its values to the
+# graphed route's own limit (``_close_rel``).
 
 
 def _stamps_on():
@@ -1614,12 +1627,39 @@ def test_stamp_kernel_builds_and_credits_the_work_before_it(card):
     assert seg["step.work"]["stamps"] == 1
 
 
+def _kernels_run(prof):
+    """The device's kernels, copies and sets in a profiled stretch, the
+    stamps and the host spans' device ranges (``sgs.*``) aside: name ->
+    count. The CUDA driver runs a graph's copy or set node on the copy
+    engine or as a kernel of its own (``memcpy32_post``, ``memset32``), as
+    it lowers the graph, so each counts under one name either way."""
+    from torch.autograd import DeviceType
+    from sgs_gnn_tpu_torch.core import spans
+    names = collections.Counter()
+    for e in prof.events():
+        if (e.device_type != DeviceType.CUDA or "stamp_kernel" in e.name
+                or e.name.startswith(spans.PREFIX)):
+            continue
+        if e.name.startswith("Memcpy DtoD") or re.fullmatch(
+                r"memcpy\d*(_\w+)?", e.name):
+            names["copy on the device"] += 1
+        elif e.name.startswith("Memset") or re.fullmatch(
+                r"memset\d*(_\w+)?", e.name):
+            names["set on the device"] += 1
+        else:
+            names[e.name] += 1
+    return names
+
+
 @pytest.mark.parametrize("name", ["hybrid_rescore", "random"])
 def test_stamped_graphs_give_the_unstamped_outputs(card, name):
-    """A learned and a random graphed epoch captured with stamps: the same
-    losses and parameters as without; every layer's segment > 0, one
-    optimizer stamp per replayed step, and the segments of the replays
-    (``between`` included) within the host wall time of those replays."""
+    """A learned and a random graphed epoch captured with stamps: the
+    replays run the kernels of those without stamps, as many times each,
+    and give their losses and parameters within the graphed route's limit;
+    every layer's segment > 0, one optimizer stamp per replayed step, and
+    the segments of the replays (``between`` included) within the host
+    wall time of those replays."""
+    from torch.profiler import ProfilerActivity, profile
     from sgs_gnn_tpu_torch import Config
     from sgs_gnn_tpu_torch.core import spans
     from sgs_gnn_tpu_torch.train import make_scan_epoch_step
@@ -1636,20 +1676,25 @@ def test_stamped_graphs_give_the_unstamped_outputs(card, name):
             sums = _run_epochs(steps, batches, plan, 1, gen)   # captures
             torch.cuda.synchronize()
             spans.reset()
-            t0 = time.perf_counter()
-            sums += _run_epochs(steps, batches, plan, 2, gen, first=1)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                sums += _run_epochs(steps, batches, plan, 2, gen, first=1)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
             seg = spans.collect()["segments"]
         finally:
             _stamps_off()
         runs.append((torch.tensor(sums), [p.detach().clone()
                                            for p in tm.parameters()],
-                     seg, wall))
-    (s_a, p_a, seg_a, _), (s_b, p_b, _, _), (s_s, p_s, seg, wall) = runs
+                     seg, wall, _kernels_run(prof)))
+    ((s_a, p_a, seg_a, _, k_a), (s_b, p_b, _, _, k_b),
+     (s_s, p_s, seg, wall, k_s)) = runs
     assert seg_a == {}
-    _same_as_unstamped([s_s], [s_a], [s_b], name + " losses")
-    _same_as_unstamped(p_s, p_a, p_b, name)
+    assert k_a and k_s == k_a == k_b, (k_s - k_a, k_a - k_s)
+    for s_u, p_u in ((s_a, p_a), (s_b, p_b)):
+        _close_rel([s_s], [s_u], name + " losses")
+        _close_rel(p_s, p_u, name)
     layers = ["between", "backbone", "loss", "optimizer"]
     if name == "hybrid_rescore":
         layers += ["scorer", "sampler"]
@@ -1740,3 +1785,152 @@ def test_stamped_gin_mlp_predict_gives_the_unstamped_outputs(card):
     for rec in (off_rec, on_rec):
         assert rec["counters"]["kernels.bytes.spmm.gather_k1"] == \
             3 * cfg.num_samples_eval * q * (f + cfg.nhid) * 4
+
+
+# ------------------------------------------- the ordered top-q draw (topq)
+
+def _topq_inputs(card, e, kind, keys, seed=0):
+    """(u, logw or None, mask or None) of one draw over e entries: "distinct"
+    keys, "tied" keys (64 levels of u and of logw, so the threshold's level
+    is split), or "masked" (-inf keys, 30 % valid)."""
+    from sgs_gnn_tpu_torch.ops import sampling_ops as so
+    g = torch.Generator(device=card).manual_seed(seed)
+    u = torch.rand(e, generator=g, device=card)
+    logw = so.log_weights(torch.rand(e, generator=g, device=card))
+    mask = None
+    if keys == "tied":
+        u = torch.randint(1, 65, (e,), generator=g, device=card).float() / 65
+        logw = so.log_weights(torch.randint(1, 65, (e,), generator=g,
+                                            device=card).float())
+    elif keys == "masked":
+        mask = torch.rand(e, generator=g, device=card) < 0.3
+    return u, logw if kind == "gumbel" else None, mask
+
+
+# (E, q): the main path's draw, tiles of one entry, a ragged last tile,
+# a whole tile, q = E, q = 1, and q above the valid count with the mask
+TOPQ_SHAPES = [(1_065_984, 200_000), (1, 1), (37, 5), (4097, 4096),
+               (4096, 4096), (10_000, 1), (50_003, 20_001)]
+
+
+@pytest.mark.parametrize("keys", ["distinct", "tied", "masked"])
+@pytest.mark.parametrize("kind", ["gumbel", "uniform"])
+@pytest.mark.parametrize("e,q", TOPQ_SHAPES)
+def test_topq_kernel_matches_the_plain_version(card, e, q, kind, keys):
+    """The kernel's ids equal the plain version's on the same keys (formed
+    by torch's ops on the card), bit for bit: the same set, ascending, ties
+    at the threshold to the lowest ids, masked entries only once the valid
+    ones run out."""
+    from sgs_gnn_tpu_torch.ops import sampling_ops as so
+    u, logw, mask = _topq_inputs(card, e, kind, keys)
+    got = _one_launch("topq", kind,
+                      lambda: so.topq_ordered(u, q, logw=logw, mask=mask))
+    want = so.topq_ordered_plain(so.draw_keys(u, logw, mask), q)
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("kind", ["gumbel", "uniform"])
+def test_topq_keys_equal_the_formula_bit_for_bit(card, kind):
+    """The images the kernel leaves in its scratch decode to the keys of
+    ``gumbel_topk``'s / ``uniform_topk``'s torch ops on the card, bit for
+    bit (-0 read as +0); u = 0 clamps to the smallest normal."""
+    from sgs_gnn_tpu_torch.ops import sampling_ops as so
+    e, q = 1_065_984, 200_000
+    u, logw, mask = _topq_inputs(card, e, kind, "masked", seed=3)
+    u[:7] = 0.0
+    if logw is not None:
+        logw[7:9] = so.log_weights(torch.zeros(2, device=card))
+    _, scratch = so._topq_cuda(u, q, logw, mask)
+    img = scratch[-e:]
+    bits = torch.where(img < 0, img ^ torch.iinfo(torch.int32).min, ~img)
+    want = so.draw_keys(u, logw, mask) + 0.0
+    assert torch.equal(bits, want.view(torch.int32))
+
+
+def test_topq_replays_in_a_cuda_graph_with_new_uniforms(card):
+    """A captured draw replays with the uniforms its buffer holds: each
+    replay's ids equal the plain version's on that replay's keys."""
+    from sgs_gnn_tpu_torch.ops import sampling_ops as so
+    e, q = 300_000, 60_000
+    _, logw, _ = _topq_inputs(card, e, "gumbel", "distinct", seed=1)
+    mask = torch.rand(e, device=card) < 0.9
+    u = torch.rand(e, device=card)
+    so.topq_ordered(u, q, logw=logw, mask=mask)      # build, warm up
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        ids = so.topq_ordered(u, q, logw=logw, mask=mask)
+    gen = torch.Generator(device=card)
+    for seed in (1, 2, 3):
+        u.copy_(torch.rand(e, generator=gen.manual_seed(seed), device=card))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(ids, so.topq_ordered_plain(
+            so.draw_keys(u, logw, mask), q))
+
+
+def test_topq_counts_routes_and_ties(card):
+    """``ROUTES[("topq", formula)]`` counts each draw; the kernel's tie
+    counter adds the draws whose threshold had more equal keys than they
+    took, and the tied ids they took, as the plain keys say."""
+    from sgs_gnn_tpu_torch.ops import sampling_ops as so
+    e, q = 200_000, 40_000
+    so.reset_topq_ties()
+    want = {"draws": 0, "ids": 0}
+    for kind in ("gumbel", "uniform"):
+        for keys in ("distinct", "tied"):
+            u, logw, mask = _topq_inputs(card, e, kind, keys, seed=5)
+            _one_launch("topq", kind,
+                        lambda: so.topq_ordered(u, q, logw=logw, mask=mask))
+            k = so.draw_keys(u, logw, mask)
+            t = torch.topk(k, q).values.min()
+            need = q - int((k > t).sum())
+            if int((k == t).sum()) > need:
+                want["draws"] += 1
+                want["ids"] += need
+    assert want["draws"] >= 2            # the tied keys break ties
+    assert so.topq_ties() == want
+
+
+def test_served_gin_draws_put_k1_in_rows_mode(card):
+    """GIN + MLP ``predict`` on a receiver-sorted edge list: the draws'
+    ascending ids hand K1 sorted receivers, so every slab chunk of its sums
+    takes "rows" mode; a served request and an evaluated batch run the
+    topq kernel and neither torch.topk nor a sort."""
+    from sgs_gnn_tpu_torch import (Config, Graph, get_model, make_eval_step,
+                                   make_predictor)
+    from sgs_gnn_tpu_torch.data import degree_prior
+    rng = np.random.default_rng(2)
+    n, e, f, c = 2048, 200_000, 64, 5
+    ei = rng.integers(0, n, (2, e)).astype(np.int32)
+    g = Graph.build(rng.normal(size=(n, f)).astype(np.float32), ei,
+                    rng.integers(0, c, n).astype(np.int32),
+                    prob=degree_prior(ei[0], ei[1], n), num_classes=c,
+                    sort_by_receiver=True, device=card)
+    cfg, q = Config(nhid=64, num_samples_eval=3), 40_000
+    tm = get_model("GIN", f, cfg.nhid, c, cfg.drop_rate, "MLP",
+                   dtype=cfg.dtype, device=card,
+                   generator=torch.Generator().manual_seed(0))
+    predict = make_predictor(cfg, tm, q)
+    gen = torch.Generator(device=card)
+    predict(g, gen.manual_seed(1))                  # eager + capture
+    torch.cuda.synchronize()
+    sc.reset_slab_chunk_modes()
+    launches = collections.Counter(LAUNCHES)
+    predict(g, gen.manual_seed(2))
+    modes = sc.slab_chunk_modes()
+    assert (LAUNCHES - launches)["topq"] == cfg.num_samples_eval
+    assert modes["sort"] == 0 and modes["rows"] > 0, modes
+    evaluate = make_eval_step(cfg, tm, q)
+    for call in (predict, evaluate):
+        call(g, gen.manual_seed(3))
+        torch.cuda.synchronize()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            call(g, gen.manual_seed(3))
+            torch.cuda.synchronize()
+        names = [ev.key for ev in prof.key_averages()]
+        assert any("topq_write_kernel" in k for k in names), names
+        # torch.topk's radix select and torch.sort's kernels
+        assert not any(lib in k for k in names for lib in (
+            "mbtopk", "RadixSort", "bitonicSort", "sortKeyValue")), names

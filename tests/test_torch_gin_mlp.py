@@ -50,7 +50,7 @@ from test_torch_graphed import _FakeGraph, _no_capture
 # off and empty around each test
 from test_torch_spans import _rerun_capture, spans_off_after  # noqa: F401
 from test_torch_train import (C, E, F_IN, HID, Q, _cfg, _freeze, _graph,
-                              _np_tree, _t)
+                              _np_tree, _t, edge_sampler_of)
 
 # the module (ops/__init__ binds the name spmm to the function)
 sp = importlib.import_module("sgs_gnn_tpu_torch.ops.spmm")
@@ -90,7 +90,8 @@ def _freeze_serving(monkeypatch, idx):
         st = (1.0 - sel).detach() + sel
         return t_idx, torch.clamp(edge_probs[t_idx.long()] * st, 0.0, 1.0)
     monkeypatch.setattr(jax_serve, "sample_edges", jax_sample_edges)
-    monkeypatch.setattr(serve, "sample_edges", torch_sample_edges)
+    monkeypatch.setattr(serve, "edge_sampler",
+                        edge_sampler_of(torch_sample_edges))
 
 
 # ------------------------------------------------------------ against JAX

@@ -230,6 +230,15 @@ def _graph(seed, tile):
     return jg, tg, idx, rand_idx
 
 
+def edge_sampler_of(sample_edges):
+    """An ``edge_sampler`` whose draws are ``sample_edges``' calls."""
+    def edge_sampler(edge_probs, prior, q, beta, istest=False,
+                     edge_mask=None):
+        return lambda generator: sample_edges(generator, edge_probs, prior,
+                                              q, beta, istest, edge_mask)
+    return edge_sampler
+
+
 def _freeze(monkeypatch, idx, rand_idx):
     """Fixed-index samplers in both packages, with the weight formulas of
     ``sample_edges`` (the oracle test's ``_freeze_sampling``)."""
@@ -262,8 +271,9 @@ def _freeze(monkeypatch, idx, rand_idx):
         monkeypatch.setattr(mod, "sample_edges", jax_sample_edges)
     monkeypatch.setattr(jax_pipelines, "sample_prior_edges",
                         lambda *a, **k: j_rand)
-    for mod in (pipelines, evaluate):
-        monkeypatch.setattr(mod, "sample_edges", torch_sample_edges)
+    monkeypatch.setattr(pipelines, "sample_edges", torch_sample_edges)
+    monkeypatch.setattr(evaluate, "edge_sampler",
+                        edge_sampler_of(torch_sample_edges))
     monkeypatch.setattr(pipelines, "sample_prior_edges",
                         lambda *a, **k: t_rand)
 

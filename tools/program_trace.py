@@ -19,7 +19,9 @@ would take (``optimizer_ms.train`` ... ``setup_partition_s``; GIN's
 ``aggregate_ms`` and ``message_gib``, per trained step or request, from
 the ``aggregate`` stamps and ``kernels.bytes.spmm.gather_k1``), and the
 share of the window's GCN aggregations that took K8 (``spmm_k8_share``,
-from ``kernels.routes.spmm.*``). With
+from ``kernels.routes.spmm.*``), K1's slab chunks per mode and the share
+in "rows" mode (``k1_rows_share``, counted by the kernel) and the ordered
+top-q draw's ties (``topq_ties``). With
 ``--check`` the run is then held to the plain reference as
 ``benchmark/run.py`` holds it, and ``correct`` is printed.
 
@@ -78,6 +80,8 @@ def profiled(run):
     from torch.profiler import ProfilerActivity, profile
     from benchmark import trace
     from sgs_gnn_tpu_torch.core import spans
+    from sgs_gnn_tpu_torch.ops import sampling_ops
+    from sgs_gnn_tpu_torch.ops import scatter as sc
     t = run.cell.traffic
     if t["loop"] == "train_epochs":
         fn = lambda: run._train_window(epochs=t["trace_epochs"])
@@ -85,6 +89,8 @@ def profiled(run):
         fn = lambda: run._serve_window(requests=t["trace_requests"])
     torch.cuda.synchronize()
     spans.reset()
+    sc.reset_slab_chunk_modes()
+    sampling_ops.reset_topq_ties()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         with trace.span(torch, "window"):
@@ -93,6 +99,8 @@ def profiled(run):
             torch.cuda.synchronize()
             window_s = time.perf_counter() - t0
     program = spans.collect()
+    k1_chunks = sc.slab_chunk_modes()
+    topq_ties = sampling_ops.topq_ties()
     events = list(prof.events())
     prefixes = (trace.SPAN_PREFIX, spans.PREFIX)
     dev = [e for e in events if e.device_type == DeviceType.CUDA]
@@ -133,7 +141,8 @@ def profiled(run):
                                               lo, hi),
                 device_ops=[[k, v[1], v[0]] for k, v in sorted(
                     kernels.items(), key=lambda kv: -kv[1][1])[:15]],
-                replays=replays, program=program)
+                replays=replays, program=program, k1_slab_chunks=k1_chunks,
+                topq_ties=topq_ties)
 
 
 def readings(run, tr, setup):
@@ -181,6 +190,10 @@ def readings(run, tr, setup):
     per = facts.get("steps") or facts.get("requests")
     out["message_gib"] = counters.get(
         "kernels.bytes.spmm.gather_k1", 0) / 2 ** 30 / per
+    # K1's slab chunks in "rows" mode (sorted ids), as the kernel counted
+    chunks = tr["k1_slab_chunks"]
+    total = sum(chunks.values())
+    out["k1_rows_share"] = chunks["rows"] / total if total else None
     return out
 
 
