@@ -35,12 +35,21 @@ The counters then read as they would after the same eager calls. What a
 kernel counts on the card (K1's slab chunks per mode) the replay counts
 itself.
 
+:func:`run_batch` is the one replay path of the training epoch, the eval
+and serving: a batch loaded into its class's buffers, then run or
+replayed. :class:`Schedule` is what the epoch and the eval share: a
+per-batch loop whose bodies run through :func:`run_batch` on the graphed
+route, or on the batch itself on the loop route, adding into one device
+sum.
+
 With ``core/spans`` on, :class:`Graphs` runs the eager call in the span
 ``graph.eager``, the capture in ``graph.capture`` and a replay in
 ``<name>.replay`` (``name``: ``step``, ``eval`` or ``serve``), counts
 ``graph.eager_runs``, ``graph.captures`` and ``graph.replays``, and names
-the stamps of its bodies by the phase ``name``; :meth:`StaticGraph.load`
-counts the bytes it copies in ``graph.load_bytes``.
+the stamps of its bodies by the phase ``name``; :func:`run_batch` opens
+``<name>.slot`` and ``<name>.load`` around finding and filling the
+buffers; :meth:`StaticGraph.load` counts the bytes it copies in
+``graph.load_bytes``.
 """
 from __future__ import annotations
 
@@ -249,3 +258,48 @@ class Graphs:
 
     def __len__(self) -> int:
         return len(self.by_key)
+
+
+def run_batch(classes: ShapeClasses, graphs: Graphs, g: Graph, key_extra,
+              body: Callable[[Graph, Optional[torch.Generator]], Any],
+              generator: Optional[torch.Generator] = None):
+    """``body(buffers, generator)`` for the batch ``g``: its tensors
+    copied into its shape class's buffers, then the graph keyed by (class,
+    ``key_extra``) run eagerly and captured at the key's first call, else
+    replayed (:meth:`Graphs.run`, whose outputs it returns)."""
+    with spans.span(f"{graphs.name}.slot"):
+        bufs, pool = classes.slot(g)
+    with spans.span(f"{graphs.name}.load"):
+        static = bufs.load(g)
+    return graphs.run((bufs.key, key_extra), functools.partial(body, static),
+                      pool, generator)
+
+
+class Schedule:
+    """A per-batch schedule on one of two routes, the same batches, draws
+    and sums on both: the graphed route runs each batch's body through
+    :func:`run_batch` (``classes``, a new :class:`ShapeClasses` by default;
+    ``graphs``, named ``name``); the loop route (``loop``) calls the body
+    on the batch itself, with no buffers and no capture, in the stamps'
+    phase ``name``. ``acc`` is a device vector of ``width`` sums that the
+    bodies add into, zeroed at the start of each call (:meth:`_zeroed`);
+    its address stays fixed for the graphs."""
+
+    def __init__(self, name: str, width: int,
+                 classes: Optional[ShapeClasses] = None, loop: bool = False):
+        self.name, self.width = name, width
+        self.classes = ShapeClasses() if classes is None else classes
+        self.graphs = None if loop else Graphs(name=name)
+        self.acc = None
+
+    def _zeroed(self, device) -> torch.Tensor:
+        if self.acc is None:
+            self.acc = torch.zeros(self.width, device=device)
+        return self.acc.zero_()
+
+    def _run(self, g: Graph, key_extra, body, generator: torch.Generator):
+        if self.graphs is None:
+            with spans.phase(self.name):
+                return body(g, generator)
+        return run_batch(self.classes, self.graphs, g, key_extra, body,
+                         generator)

@@ -34,7 +34,9 @@ epoch and the eval are replays of CUDA graphs (``make_scan_epoch_step``,
 ``make_scan_eval_step``: one graph per (shape class, case), captured after
 the first eager step of the pair, sharing the class's input buffers and
 memory pool); else (``'off'``, one batch, or the CPU) the per-batch loop of
-eager steps. Both give the same updates from the same draws. A capture
+eager steps. Both routes are the same schedule objects, which differ only
+in whether a batch's body is captured and replayed, so they give the same
+updates from the same draws. A capture
 that fails raises. The ``[fastpath]`` lines name the tile kernel's and the
 dense-subgraph route's engagement, the epoch's route, and why; after each
 run they name the graphs captured and replayed.
@@ -82,15 +84,13 @@ from ..core.graph import Graph
 from ..data.partition import (induced_subgraphs, partition_nodes,
                               resolve_partitioner)
 from ..data.registry import HostDataset, get_dataset
-from ..eval import (accumulate_eval_device, aggregate_eval, make_eval_step,
+from ..eval import (accumulate_eval_device, aggregate_eval,
                     make_scan_eval_step)
-from ..eval.evaluate import ScanEvalStep
 from ..models import get_model
 from ..ops.dense_graph import (AUTO_DEVICE_TYPES, dense_supported,
                                use_dense_subgraph)
 from ..parallel.distributed import init_distributed, is_primary
-from ..train import DualOptimizer, make_scan_epoch_step, make_train_step
-from ..train.pipelines import ScanEpochStep
+from ..train import DualOptimizer, make_scan_epoch_step
 from .checkpoint import TrainState, load_checkpoint, save_checkpoint
 
 
@@ -299,43 +299,22 @@ def _epoch_order(shuffle_rng, class_members):
 
 
 def _train_epoch(steps, batches, order, plan, epoch, gen, seed, run):
-    """One epoch: the graphed epoch's replays (``steps`` a
-    ``ScanEpochStep``) or the batch loop (``steps`` {1: small, 2: sampled}
-    eager steps). Enqueues work only: returns the summed loss and
-    conditional-update count as device scalars, and the last temperature.
-    ``plan[bi]`` is 0 (skip: no train nodes), 1 (small) or 2 (sampled)."""
-    def seed_of(n):
-        return batch_seed(seed, run, n)
-    if isinstance(steps, ScanEpochStep):
-        return steps(batches, order, plan, epoch, gen, seed_of)
-    dev = batches[0].x.device
-    loss_acc = torch.zeros((), device=dev)
-    cond_acc = torch.zeros((), device=dev)
-    temp = 1.0
-    n_batches = len(batches)
-    for bi in order:
-        if plan[bi] == 0:
-            continue
-        gen.manual_seed(seed_of(epoch * n_batches + bi + 1))
-        m = steps[plan[bi]](batches[bi], epoch, gen)
-        loss_acc = loss_acc + m.loss
-        cond_acc = cond_acc + m.conditional_update
-        temp = m.temperature
-    return loss_acc, cond_acc, temp
+    """One epoch of ``steps`` (``make_scan_epoch_step``'s schedule, on
+    either route), each batch's draws from ``batch_seed(seed, run, ...)``.
+    Enqueues work only: returns the summed loss and conditional-update
+    count as device scalars, and the last temperature. ``plan[bi]`` is 0
+    (skip: no train nodes), 1 (small) or 2 (sampled). The driver calls it
+    by name, so a caller can wrap the epoch (chip_smoke.py does)."""
+    return steps(batches, order, plan, epoch, gen,
+                 lambda n: batch_seed(seed, run, n))
 
 
 def _evaluate(evals, batches, small, gen, stream_seed):
-    """Ensemble eval of every batch on the device, each batch's draws from
-    the same seed (the JAX driver passes one key to every batch): the
-    graphed eval's replays (``evals`` a ``ScanEvalStep``) or a loop of
-    eager eval steps ({0: big, 1: small})."""
-    if isinstance(evals, ScanEvalStep):
-        return evals(batches, small, gen, stream_seed)
-    acc = None
-    for bi, g in enumerate(batches):
-        gen.manual_seed(stream_seed)
-        acc = accumulate_eval_device(acc, evals[small[bi]](g, gen))
-    return acc
+    """Ensemble eval of every batch on the device (``make_scan_eval_step``'s
+    schedule, on either route), each batch's draws from the same seed (the
+    JAX driver passes one key to every batch); called by name, as
+    ``_train_epoch``."""
+    return evals(batches, small, gen, stream_seed)
 
 
 def _silent(*args, **kwargs):
@@ -425,18 +404,12 @@ def _run_experiment(cfg: Config, ds: Optional[HostDataset], log_fn, dev,
     route, _ = epoch_route(cfg, n_batches, dev)
 
     def make_steps(model, opt):
-        if route == "graphed":
-            # the train and eval graphs of a class share its buffers and
-            # memory pool
-            classes = graphed.ShapeClasses()
-            return (make_scan_epoch_step(cfg, model, opt, q, cfg.epochs,
-                                         n_batches, classes),
-                    make_scan_eval_step(cfg, model, q, classes))
-        return ({2: make_train_step(cfg, model, opt, q, cfg.epochs),
-                 1: make_train_step(cfg, model, opt, q, cfg.epochs,
-                                    force_small=True)},
-                {0: make_eval_step(cfg, model, q),
-                 1: make_eval_step(cfg, model, q, force_small=True)})
+        # the train and eval graphs of a class share its buffers and
+        # memory pool
+        classes, loop = graphed.ShapeClasses(), route == "loop"
+        return (make_scan_epoch_step(cfg, model, opt, q, cfg.epochs,
+                                     n_batches, classes, loop),
+                make_scan_eval_step(cfg, model, q, classes, loop))
 
     shuffle = {}
 

@@ -28,7 +28,6 @@ inside; the device stamps mark the end of the scorer and of each draw
 """
 from __future__ import annotations
 
-import functools
 import itertools
 from typing import NamedTuple
 
@@ -37,7 +36,8 @@ import torch
 from ..core.config import Config
 from ..core.graph import Graph
 from ..core import graphed, spans
-from ..sparsify.sampling import edge_sampler, sample_edges
+from ..eval.evaluate import learned_ensemble, score_all
+from ..sparsify.sampling import sample_edges
 
 
 class SparsifiedGraph(NamedTuple):
@@ -48,15 +48,10 @@ class SparsifiedGraph(NamedTuple):
     probs: torch.Tensor       # (E,) full learned edge-probability vector
 
 
-def _score_all(model, g: Graph):
-    return model.score_edges(g.x, g.senders, g.receivers, g.senders,
-                             g.receivers, True)
-
-
 def _graphed(fn):
     """``fn(graph, generator)``, replayed from CUDA graphs on a CUDA
-    device (module docstring); ``.graphs`` holds them, ``.eager`` is
-    ``fn``."""
+    device (module docstring; ``graphed.run_batch``); ``.graphs`` holds
+    them, ``.eager`` is ``fn``."""
     classes, graphs = graphed.ShapeClasses(), graphed.Graphs(name="serve")
     calls = itertools.count()
 
@@ -64,14 +59,10 @@ def _graphed(fn):
         if not graphed.runs_graphs(g.x.device):
             return fn(g, generator)
         with spans.span("serve.request", next(calls)):
-            with spans.span("serve.slot"):
-                bufs, pool = classes.slot(g)
-            replay = bufs.key in graphs.by_key
-            with spans.span("serve.load"):
-                static = bufs.load(g)
-            out = graphs.run(bufs.key, functools.partial(fn, static), pool,
-                             generator)
-            if replay:     # the static outputs: the caller gets copies
+            n_graphs = len(graphs)
+            out = graphed.run_batch(classes, graphs, g, None, fn, generator)
+            if len(graphs) == n_graphs:
+                # a replay's static outputs: the caller gets copies
                 with spans.span("serve.clone"):
                     clones = [t.clone() for t in out]
                     out = (type(out)(*clones) if hasattr(out, "_fields")
@@ -88,7 +79,7 @@ def make_sparsifier(cfg: Config, model, q: int):
     @torch.no_grad()
     def sparsify(g: Graph, generator: torch.Generator) -> SparsifiedGraph:
         spans.stamp("between", g.x.device)
-        probs = _score_all(model, g)
+        probs = score_all(model, g)
         spans.stamp("scorer", g.x.device)
         idx, w = sample_edges(generator, probs, g.prob, q,
                               cfg.degree_bias_coef, istest=True,
@@ -102,10 +93,10 @@ def make_sparsifier(cfg: Config, model, q: int):
 
 
 def make_predictor(cfg: Config, model, q: int):
-    """Returns ``predict(graph, generator) -> (logits, labels)``: the mean
+    """Returns ``predict(graph, generator) -> (logits, labels)``: the
+    learned ensemble (``eval/evaluate.py`` ``learned_ensemble``: the mean
     of the backbone's logits over ``cfg.num_samples_eval`` draws of q
-    edges; with E <= q or ``cfg.mode == 'full'`` the full graph, once."""
-    n_draws = cfg.num_samples_eval
+    edges); with E <= q or ``cfg.mode == 'full'`` the full graph, once."""
 
     @torch.no_grad()
     def predict(g: Graph, generator: torch.Generator):
@@ -113,20 +104,8 @@ def make_predictor(cfg: Config, model, q: int):
         if g.num_edges <= q or cfg.mode == "full":
             logits = model(g.x, g.senders, g.receivers, deterministic=True)
             spans.stamp("backbone", g.x.device)
-            return logits, torch.argmax(logits, dim=-1)
-        probs = _score_all(model, g)
-        spans.stamp("scorer", g.x.device)
-        draw = edge_sampler(probs, g.prob, q, cfg.degree_bias_coef,
-                            istest=True, edge_mask=g.edge_mask)
-        total = None
-        for _ in range(n_draws):
-            idx, w = draw(generator)
-            spans.stamp("sampler", g.x.device)
-            out = model(g.x, g.senders[idx], g.receivers[idx], w,
-                        deterministic=True)
-            total = out if total is None else total + out
-            spans.stamp("backbone", g.x.device)
-        logits = total / n_draws
+        else:
+            logits = learned_ensemble(cfg, model, q, g, generator)
         return logits, torch.argmax(logits, dim=-1)
 
     return _graphed(predict)

@@ -56,8 +56,9 @@ Adam group with weight decay (``DualOptimizer.step_all``). ``force_small``
 (the driver's pick for a padded batch whose valid edge count is <= q)
 and E <= q take the whole graph in every mode.
 
-``make_scan_epoch_step`` runs an epoch's steps as replays of CUDA graphs
-captured per (shape class, case), the twin of the JAX ``lax.scan`` epoch.
+``make_scan_epoch_step`` runs an epoch's steps in the one per-batch
+schedule, the twin of the JAX ``lax.scan`` epoch: as replays of CUDA
+graphs captured per (shape class, case), or as a loop of eager steps.
 
 With ``core/spans``' device stamps on, a step stamps the end of each
 layer's forward (``sampler``, ``scorer``, ``backbone``, ``loss``), of its
@@ -67,9 +68,9 @@ backward is split once, where the scorer's weights enter the backbone
 losses' and the backbone's backward) is ``backbone``, the rest (the
 scorer's head and encoder, the sampler's straight-through weights) is
 ``scorer``; a backbone parameter's gradient that autograd computes after
-the edge weights' is credited to ``scorer``. The graphed epoch's host
-spans: ``step`` per batch (id: epoch, batch), with ``step.slot``,
-``step.load`` and the replay, capture or eager run inside.
+the edge weights' is credited to ``scorer``. The epoch's host spans:
+``step`` per batch (id: epoch, batch), on the graphed route with
+``step.slot``, ``step.load`` and the replay, capture or eager run inside.
 """
 from __future__ import annotations
 
@@ -81,7 +82,7 @@ import torch
 from ..core import spans
 from ..core.config import Config
 from ..core.graph import Graph
-from ..core.graphed import Graphs, ShapeClasses
+from ..core.graphed import Schedule, ShapeClasses
 from ..models.scorers import draw_seed
 from ..ops.dense_graph import dense_adj, use_dense_subgraph
 from ..sparsify.sampling import (random_edges, sample_edges,
@@ -378,17 +379,16 @@ def make_train_step(cfg: Config, model, opt: DualOptimizer, q: int,
     return step
 
 
-class ScanEpochStep:
-    """The graphed epoch (module ``make_scan_epoch_step``)."""
+class ScanEpochStep(Schedule):
+    """An epoch's per-batch schedule, graphed or looped (module
+    ``make_scan_epoch_step``)."""
 
     def __init__(self, cases, temperature_of, n_batches: int,
-                 classes: Optional[ShapeClasses] = None):
+                 classes: Optional[ShapeClasses] = None, loop: bool = False):
+        super().__init__("step", 2, classes, loop)     # loss, gate count
         self.cases = cases
         self.temperature_of = temperature_of
         self.n_batches = n_batches
-        self.classes = ShapeClasses() if classes is None else classes
-        self.graphs = Graphs(name="step")
-        self.acc = None            # (2,): summed loss, gate count
 
     def _body(self, case, g: Graph, generator: torch.Generator):
         spans.stamp("between", g.x.device)
@@ -397,10 +397,7 @@ class ScanEpochStep:
 
     def __call__(self, batches, order, actions, epoch: int,
                  generator: torch.Generator, seed_of: Callable[[int], int]):
-        dev = batches[0].x.device
-        if self.acc is None:
-            self.acc = torch.zeros(2, device=dev)
-        self.acc.zero_()
+        acc = self._zeroed(batches[0].x.device)
         temperature = 1.0
         for bi in order:
             action = actions[bi]
@@ -410,50 +407,48 @@ class ScanEpochStep:
                 temperature = self.temperature_of(epoch)
                 generator.manual_seed(seed_of(epoch * self.n_batches + bi
                                               + 1))
-                with spans.span("step.slot"):
-                    bufs, pool = self.classes.slot(batches[bi])
-                with spans.span("step.load"):
-                    g = bufs.load(batches[bi])
-                self.graphs.run((bufs.key, action),
-                                functools.partial(self._body,
-                                                  self.cases[action], g),
-                                pool, generator)
-        return self.acc[0], self.acc[1], temperature
+                self._run(batches[bi], action,
+                          functools.partial(self._body, self.cases[action]),
+                          generator)
+        return acc[0], acc[1], temperature
 
 
 def make_scan_epoch_step(cfg: Config, model, opt: DualOptimizer, q: int,
                          max_epoch: int, n_batches: int,
-                         classes: Optional[ShapeClasses] = None
-                         ) -> ScanEpochStep:
-    """The whole epoch's training as CUDA graphs: the twin of the JAX
+                         classes: Optional[ShapeClasses] = None,
+                         loop: bool = False) -> ScanEpochStep:
+    """The whole epoch's training: the twin of the JAX
     ``make_scan_epoch_step``, whose ``lax.scan`` runs the per-batch loop's
-    updates in one dispatch (pipelines.py:372-480).
+    updates in one dispatch (pipelines.py:372-480), as CUDA graphs, or
+    with ``loop`` as the per-batch loop of eager steps.
 
-    One graph per (shape class, case) holds the forward, the backward and
-    the ``DualOptimizer`` update of one batch (``core/graphed.py``). The
-    cases are JAX's action table: 0 skip (no train nodes: no graph, no
-    replay), 1 small (valid edges <= q), 2 sampled; a class's graphs
-    share its input buffers and memory pool (``classes``, which the eval's
-    graphs may share). The first batch of each (class, case) runs eagerly,
-    as its own step, and the graph is captured right after it; every later
-    batch of the pair is copied into the class's buffers and replayed.
+    The cases are JAX's action table: 0 skip (no train nodes: no step), 1
+    small (valid edges <= q), 2 sampled. Graphed, one graph per (shape
+    class, case) holds the forward, the backward and the
+    ``DualOptimizer`` update of one batch (``core/graphed.py``); a class's
+    graphs share its input buffers and memory pool (``classes``, which the
+    eval's graphs may share). The first batch of each (class, case) runs
+    eagerly, as its own step, and the graph is captured right after it;
+    every later batch of the pair is copied into the class's buffers and
+    replayed.
 
     ``epoch_step(batches, order, actions, epoch, generator, seed_of) ->
     (loss_sum, cond_sum, temperature)``: the sums are device scalars (views,
     valid until the next call), the temperature the host schedule's value
-    (1.0 when every batch is skipped, as the loop): ``order`` the epoch's global batch ids, ``actions`` the
-    table by batch id, and before batch ``bi`` the generator is reseeded
-    with ``seed_of(epoch * n_batches + bi + 1)``, the per-batch loop's
-    schedule. So the same order, the same per-batch draws and one update
-    per batch as the loop (the JAX docstring): a graphed epoch equals the
-    eager one up to the order of f32 atomics. Runs on a CUDA device (``classes`` raises on another).
-    A tensor-parallel model (``parallel.shard_params_tp``) trains step by
-    step, as JAX's does: this raises on one."""
+    (1.0 when every batch is skipped): ``order`` the epoch's global batch
+    ids, ``actions`` the table by batch id, and before batch ``bi`` the
+    generator is reseeded with ``seed_of(epoch * n_batches + bi + 1)``. So
+    both routes take the same order, the same per-batch draws and one
+    update per batch (the JAX docstring): a graphed epoch equals the loop
+    up to the order of f32 atomics. The graphed route runs on a CUDA
+    device (``classes`` raises on another). A tensor-parallel model
+    (``parallel.shard_params_tp``) trains on the loop route, as JAX's
+    trains step by step: the graphed route raises on one."""
     from ..parallel.tensor_parallel import is_sharded
-    if is_sharded(model):
+    if not loop and is_sharded(model):
         raise ValueError("make_scan_epoch_step: a tensor-parallel model "
-                         "trains step by step (make_train_step)")
+                         "trains step by step (loop=True)")
     return ScanEpochStep(
         _step_cases(cfg, model, opt, q),
         lambda epoch: temperature_at(epoch, max_epoch, cfg.t_init, cfg.t_min),
-        n_batches, classes)
+        n_batches, classes, loop)

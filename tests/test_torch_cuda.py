@@ -1083,8 +1083,8 @@ def _run_epochs(steps, batches, plan, epochs, gen, first=0):
     sums = []
     for epoch in range(first, first + epochs):
         order = [(epoch + i) % len(batches) for i in range(len(batches))]
-        acc = driver._train_epoch(steps, batches, order, plan, epoch, gen,
-                                  0, 0)
+        acc = steps(batches, order, plan, epoch, gen,
+                    lambda n: driver.batch_seed(0, 0, n))
         sums.append([float(v) for v in acc])
     return sums
 
@@ -1097,7 +1097,7 @@ def _close_rel(got, want, what):
 
 @pytest.mark.parametrize("name", list(GRAPHED_KW))
 def test_graphed_epoch_equals_the_eager_epoch(card, name):
-    from sgs_gnn_tpu_torch import Config, make_train_step
+    from sgs_gnn_tpu_torch import Config
     from sgs_gnn_tpu_torch.train import make_scan_epoch_step
     cfg = Config(**GRAPHED_BASE, **GRAPHED_KW[name])
     batches, plan, q, classes = _graphed_batches(card, cfg)
@@ -1106,12 +1106,8 @@ def test_graphed_epoch_equals_the_eager_epoch(card, name):
     out = {}
     for route in ("eager", "graphed"):
         tm, opt = _graphed_model(card, cfg, batches, classes)
-        if route == "eager":
-            steps = {2: make_train_step(cfg, tm, opt, q, 4),
-                     1: make_train_step(cfg, tm, opt, q, 4,
-                                        force_small=True)}
-        else:
-            steps = make_scan_epoch_step(cfg, tm, opt, q, 4, len(batches))
+        steps = make_scan_epoch_step(cfg, tm, opt, q, 4, len(batches),
+                                     loop=route == "eager")
         LAUNCHES.clear()
         sums = _run_epochs(steps, batches, plan, 3,
                            torch.Generator(device=card))
@@ -1135,24 +1131,20 @@ def test_graphed_epoch_equals_the_eager_epoch(card, name):
 
 def test_graphed_eval_equals_the_eager_eval(card):
     from sgs_gnn_tpu_torch import Config
-    from sgs_gnn_tpu_torch.eval import make_eval_step, make_scan_eval_step
-    from sgs_gnn_tpu_torch.run import driver
+    from sgs_gnn_tpu_torch.eval import make_scan_eval_step
     for mode in ("learned", "random", "full"):
         cfg = Config(**GRAPHED_BASE, mode=mode, pipeline="hybrid")
         batches, _, q, classes = _graphed_batches(card, cfg)
         tm, _ = _graphed_model(card, cfg, batches, classes)
         small = [1, 0, 1, 0]
-        eager = {0: make_eval_step(cfg, tm, q),
-                 1: make_eval_step(cfg, tm, q, force_small=True)}
+        eager = make_scan_eval_step(cfg, tm, q, loop=True)
         scan = make_scan_eval_step(cfg, tm, q)
         gen = torch.Generator(device=card)
         LAUNCHES.clear()
-        want = [driver._evaluate(eager, batches, small, gen, s)
-                for s in (5, 6, 5)]
+        want = [eager(batches, small, gen, s) for s in (5, 6, 5)]
         launches = dict(LAUNCHES)
         LAUNCHES.clear()
-        got = [driver._evaluate(scan, batches, small, gen, s)
-               for s in (5, 6, 5)]
+        got = [scan(batches, small, gen, s) for s in (5, 6, 5)]
         assert dict(LAUNCHES) == launches
         keys = {(g.num_edges, f) for g, f in zip(batches, small)}
         assert len(scan.graphs) == len(keys)

@@ -131,23 +131,26 @@ def test_learned_batches_follow_the_host_rule(monkeypatch, tmp_path):
                 skipped=has_train.count(False))
     assert want["big"] and want["small"] and want["skipped"]
 
-    calls = {True: 0, False: 0}
-    make = driver.make_train_step
+    calls = {True: 0, False: 0}       # by small (case 1) or sampled (2)
+    make = driver.make_scan_epoch_step
 
-    def counting(*a, force_small=False, **k):
-        step = make(*a, force_small=force_small, **k)
+    def counting(*a, **k):
+        steps = make(*a, **k)
 
-        def counted(g, epoch, gen):
-            calls[force_small] += 1
-            return step(g, epoch, gen)
-        return counted
-    monkeypatch.setattr(driver, "make_train_step", counting)
+        def counted(case, small):
+            def run(g, gen):
+                calls[small] += 1
+                return case(g, gen)
+            return run
+        steps.cases = {c: counted(f, c == 1) for c, f in steps.cases.items()}
+        return steps
+    monkeypatch.setattr(driver, "make_scan_epoch_step", counting)
     tds = dataclasses.replace(treg.get_dataset(Config(**BASE)),
                               train_mask=train)
     tcfg = Config(mode="learned", pipeline="hybrid", epochs=2,
                   sample_perc=perc, save_csv=False, **BASE)
     (res,) = driver.run_experiment(tcfg, tds, log_fn=_quiet, device="cpu")
-    assert res.plan["q"] == q
+    assert res.plan["q"] == q and res.epoch_route == "loop"
     assert {k: res.plan[k] for k in want} == want
     assert calls == {False: 2 * want["big"], True: 2 * want["small"]}
     assert res.total_updates == 2 * (want["big"] + want["small"])

@@ -32,7 +32,7 @@ from sgs_gnn_tpu.core import Config as JConfig
 from sgs_gnn_tpu.models import get_model as jax_get_model, init_params
 from sgs_gnn_tpu.sparsify.sampling import _normalized as jax_normalized
 
-import sgs_gnn_tpu_torch.run.serve as serve
+import sgs_gnn_tpu_torch.eval.evaluate as evaluate
 from sgs_gnn_tpu_torch import (Config, DualOptimizer, get_model,
                                make_eval_step, make_predictor,
                                params_from_jax)
@@ -74,8 +74,10 @@ def _gin_models(jg, init_seed=5):
 
 
 def _freeze_serving(monkeypatch, idx):
-    """Both packages' serving samplers return the edges ``idx`` with the
-    straight-through weights of ``sample_edges`` (evaluation semantics)."""
+    """Both packages' serving samplers (the port's: the learned
+    ensemble's ``edge_sampler``, in ``eval/evaluate.py``) return the edges
+    ``idx`` with the straight-through weights of ``sample_edges``
+    (evaluation semantics)."""
     j_idx, t_idx = jax.numpy.asarray(idx), _t(idx)
 
     def jax_sample_edges(key, edge_probs, prior, q, beta, istest=False,
@@ -90,7 +92,7 @@ def _freeze_serving(monkeypatch, idx):
         st = (1.0 - sel).detach() + sel
         return t_idx, torch.clamp(edge_probs[t_idx.long()] * st, 0.0, 1.0)
     monkeypatch.setattr(jax_serve, "sample_edges", jax_sample_edges)
-    monkeypatch.setattr(serve, "edge_sampler",
+    monkeypatch.setattr(evaluate, "edge_sampler",
                         edge_sampler_of(torch_sample_edges))
 
 
@@ -265,9 +267,9 @@ def _graphed_run(parts):
     gen = torch.Generator()
     out = []
     for epoch in range(2):
-        out += list(driver._train_epoch(steps, batches, [3, 0, 1, 2], plan,
-                                        epoch, gen, 0, 0))
-        res = driver._evaluate(evals, batches, [1, 0, 1, 0], gen, 7 + epoch)
+        out += list(steps(batches, [3, 0, 1, 2], plan, epoch, gen,
+                          lambda n: driver.batch_seed(0, 0, n)))
+        res = evals(batches, [1, 0, 1, 0], gen, 7 + epoch)
         out += [torch.as_tensor(res[k]) for k in sorted(res)]
     predict = make_predictor(cfg, tm, q)
     for i, s in ((2, 1), (3, 2), (2, 1)):

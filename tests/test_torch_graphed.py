@@ -39,7 +39,8 @@ from sgs_gnn_tpu_torch import get_model, make_train_step, params_from_jax
 from sgs_gnn_tpu_torch.core import Config
 from sgs_gnn_tpu_torch.core import graphed
 from sgs_gnn_tpu_torch.data import registry as treg
-from sgs_gnn_tpu_torch.eval import make_eval_step, make_scan_eval_step
+from sgs_gnn_tpu_torch.eval import (accumulate_eval_device, make_eval_step,
+                                    make_scan_eval_step)
 from sgs_gnn_tpu_torch.ops import _build
 from sgs_gnn_tpu_torch.run import driver
 from sgs_gnn_tpu_torch.sparsify.sampling import temperature_at
@@ -377,6 +378,51 @@ def _batches_and_plan():
     return batches, plan, q, ds.num_classes
 
 
+def _seed_of(n):
+    return driver.batch_seed(0, 0, n)
+
+
+def _reference_epoch(steps, batches, order, plan, epoch, gen):
+    """The per-batch loop of ``make_train_step`` steps ({1: small, 2:
+    sampled}) that the driver ran before the schedule held both routes:
+    the reference both routes are held to."""
+    loss_acc = torch.zeros(())
+    cond_acc = torch.zeros(())
+    temp = 1.0
+    for bi in order:
+        if plan[bi] == 0:
+            continue
+        gen.manual_seed(_seed_of(epoch * len(batches) + bi + 1))
+        m = steps[plan[bi]](batches[bi], epoch, gen)
+        loss_acc = loss_acc + m.loss
+        cond_acc = cond_acc + m.conditional_update
+        temp = m.temperature
+    return loss_acc, cond_acc, temp
+
+
+def _reference_eval(evals, batches, small, gen, stream_seed):
+    """The loop of eager eval steps ({0: big, 1: small}) the driver ran
+    before the schedule held both routes."""
+    acc = None
+    for bi, g in enumerate(batches):
+        gen.manual_seed(stream_seed)
+        acc = accumulate_eval_device(acc, evals[small[bi]](g, gen))
+    return acc
+
+
+def _epoch_step(cfg, tm, opt, q, n, route):
+    """The merged epoch step on ``route`` ("loop", or "graphed" with the
+    fake capture), or the reference's steps ("steps")."""
+    if route == "steps":
+        return {2: make_train_step(cfg, tm, opt, q, 3),
+                1: make_train_step(cfg, tm, opt, q, 3, force_small=True)}
+    steps = make_scan_epoch_step(cfg, tm, opt, q, 3, n, _fake_classes(),
+                                 loop=route == "loop")
+    if route == "graphed":
+        steps.graphs = graphed.Graphs(_rerun_capture)
+    return steps
+
+
 @pytest.mark.parametrize("kw", [
     dict(mode="learned", pipeline="hybrid", conditional=True, reg1=True,
          reg2=True, sparse_edge_mlp=True),
@@ -387,31 +433,31 @@ def _batches_and_plan():
     ids=["hybrid_rescore", "two_pass", "random", "full",
          "hybrid_rescore_dense"])
 def test_graphed_epoch_control_flow_equals_the_loop(kw):
+    """Both routes of the epoch step equal, bit for bit, the per-batch
+    loop of ``make_train_step`` steps."""
     batches, plan, q, classes = _batches_and_plan()
     cfg = Config(**dict(BASE, **kw))
     n = len(batches)
     out = {}
-    for route in ("loop", "graphed"):
+    for route in ("steps", "loop", "graphed"):
         tm = get_model("GCN", batches[0].x.shape[1], HID, classes,
                        cfg.drop_rate, "GCN", device="cpu",
                        generator=torch.Generator().manual_seed(1))
         opt = DualOptimizer.create(tm, "GCN", cfg.lr, cfg.weight_decay)
-        if route == "loop":
-            steps = {2: make_train_step(cfg, tm, opt, q, 3),
-                     1: make_train_step(cfg, tm, opt, q, 3,
-                                        force_small=True)}
-        else:
-            steps = make_scan_epoch_step(cfg, tm, opt, q, 3, n,
-                                         _fake_classes())
-            steps.graphs = graphed.Graphs(_rerun_capture)
+        steps = _epoch_step(cfg, tm, opt, q, n, route)
         gen = torch.Generator()
         sums = []
         for epoch in range(3):
             order = np.random.default_rng(epoch).permutation(n).tolist()
-            acc = driver._train_epoch(steps, batches, order, plan, epoch,
-                                      gen, 0, 0)
+            if route == "steps":
+                acc = _reference_epoch(steps, batches, order, plan, epoch,
+                                       gen)
+            else:
+                acc = steps(batches, order, plan, epoch, gen, _seed_of)
             sums.append([float(v) for v in acc])
         out[route] = (sums, [p.detach().clone() for p in tm.parameters()])
+        if route == "loop":
+            assert steps.graphs is None
         if route == "graphed":
             # one graph per (class, case) met: small in one class, sampled
             # in both; every later batch of a pair replayed
@@ -419,33 +465,87 @@ def test_graphed_epoch_control_flow_equals_the_loop(kw):
                 {(batches[i].num_edges, a) for i, a in enumerate(plan) if a})
             assert steps.graphs.replays == 3 * sum(map(bool, plan)) - len(
                 steps.graphs)
-    (sums_l, p_l), (sums_g, p_g) = out["loop"], out["graphed"]
-    assert sums_g == sums_l
-    for e, (_, _, t) in enumerate(sums_g):
+    sums_r, p_r = out["steps"]
+    for route in ("loop", "graphed"):
+        sums, params = out[route]
+        assert sums == sums_r, route
+        for a, b in zip(p_r, params):
+            assert torch.equal(a, b), route
+    for e, (_, _, t) in enumerate(sums_r):
         assert t == pytest.approx(temperature_at(e, 3, cfg.t_init,
                                                  cfg.t_min))
-    for a, b in zip(p_l, p_g):
-        assert torch.equal(a, b)
+
+
+def test_epoch_routes_visit_the_same_batches_with_the_same_seeds():
+    """The loop route and the graphed route (fake capture) of one epoch
+    step: the same batches in the epoch's order, skips left out, each
+    with the same case and the generator in the same state, the same
+    reseeds, and the same sums."""
+    batches, plan, q, classes = _batches_and_plan()
+    cfg = Config(**dict(BASE, mode="learned", pipeline="hybrid",
+                        conditional=True))
+    n = len(batches)
+    order = [3, 0, 1, 2]
+    seen = {}
+    for route in ("loop", "graphed"):
+        tm = get_model("GCN", batches[0].x.shape[1], HID, classes,
+                       cfg.drop_rate, "GCN", device="cpu",
+                       generator=torch.Generator().manual_seed(1))
+        opt = DualOptimizer.create(tm, "GCN", cfg.lr, cfg.weight_decay)
+        steps = _epoch_step(cfg, tm, opt, q, n, route)
+        visits, seeds = [], []
+
+        def recording(case, action, visits=visits):
+            def run(g, generator):
+                visits.append((action, float(g.x.sum()),
+                               int(g.senders.sum()),
+                               generator.get_state().clone()))
+                return case(g, generator)
+            return run
+        steps.cases = {a: recording(c, a) for a, c in steps.cases.items()}
+
+        def seed_of(k, seeds=seeds):
+            seeds.append(k)
+            return _seed_of(k)
+        gen = torch.Generator()
+        sums = [[float(v) for v in steps(batches, order, plan, epoch, gen,
+                                         seed_of)] for epoch in range(2)]
+        seen[route] = (visits, seeds, sums)
+    (v_l, s_l, sums_l), (v_g, s_g, sums_g) = seen["loop"], seen["graphed"]
+    want = [bi for bi in order if plan[bi]]
+    assert s_l == s_g == [epoch * n + bi + 1 for epoch in range(2)
+                          for bi in want]
+    assert [v[:3] for v in v_l] == [v[:3] for v in v_g] == [
+        (plan[bi], float(batches[bi].x.sum()), int(batches[bi].senders.sum()))
+        for _ in range(2) for bi in want]
+    for a, b in zip(v_l, v_g):
+        assert torch.equal(a[3], b[3])
+    assert sums_l == sums_g
 
 
 @pytest.mark.parametrize("mode", ["learned", "edge"])
 def test_graphed_eval_control_flow_equals_the_loop(mode):
+    """Both routes of the eval equal, bit for bit, the loop of eager eval
+    steps."""
     batches, plan, q, classes = _batches_and_plan()
     cfg = Config(**dict(BASE, mode=mode))
     tm = get_model("GCN", batches[0].x.shape[1], HID, classes, 0.3, "GCN",
                    device="cpu", generator=torch.Generator().manual_seed(2))
     small = [1, 0, 1, 0]
-    loop = {0: make_eval_step(cfg, tm, q),
-            1: make_eval_step(cfg, tm, q, force_small=True)}
+    ref = {0: make_eval_step(cfg, tm, q),
+           1: make_eval_step(cfg, tm, q, force_small=True)}
+    loop = make_scan_eval_step(cfg, tm, q, loop=True)
     scan = make_scan_eval_step(cfg, tm, q, _fake_classes())
     scan.graphs = graphed.Graphs(_rerun_capture)
     gen = torch.Generator()
     for seed in (5, 6):
-        want = driver._evaluate(loop, batches, small, gen, seed)
-        got = driver._evaluate(scan, batches, small, gen, seed)
-        assert set(got) == set(want)
-        for k in want:
-            assert torch.equal(got[k], want[k]), k
+        want = _reference_eval(ref, batches, small, gen, seed)
+        for got in (loop(batches, small, gen, seed),
+                    scan(batches, small, gen, seed)):
+            assert set(got) == set(want)
+            for k in want:
+                assert torch.equal(got[k], want[k]), k
+    assert loop.graphs is None
     assert len(scan.graphs) == len({(g.num_edges, s)
                                     for g, s in zip(batches, small)})
 

@@ -117,6 +117,33 @@ def test_predict_sampled_is_mean_over_draws(slice_pair):
     np.testing.assert_array_equal(labels.numpy(), logits.argmax(-1).numpy())
 
 
+@pytest.mark.parametrize("seed", [4, 5])
+def test_predict_logits_equal_the_learned_eval_ensemble(slice_pair,
+                                                        monkeypatch, seed):
+    """``predict`` (eager) and the learned eval run one ensemble forward:
+    from generators seeded alike, the logits the eval scores its F1s on
+    are ``predict``'s, bit for bit."""
+    from sgs_gnn_tpu_torch.eval import evaluate, make_eval_step
+    p = slice_pair
+    cfg = Config(mode="learned", num_samples_eval=3)
+    tg, tm, q = p["tg"], p["tm"], p["q"]
+    assert tg.num_edges > q
+    seen = []
+    real = evaluate.micro_f1
+
+    def spy(logits, labels, mask):
+        seen.append(logits)
+        return real(logits, labels, mask)
+    monkeypatch.setattr(evaluate, "micro_f1", spy)
+    make_eval_step(cfg, tm, q)(tg, torch.Generator().manual_seed(seed))
+    logits, labels = make_predictor(cfg, tm, q).eager(
+        tg, torch.Generator().manual_seed(seed))
+    assert len(seen) == 3            # train, val, test: one logits tensor
+    for got in seen:
+        assert torch.equal(got, logits)
+    assert torch.equal(labels, torch.argmax(logits, dim=-1))
+
+
 def _exact_inclusion(p, q):
     """P(item in sample) for q sequential draws without replacement with
     probability proportional to p (what Gumbel-top-k samples)."""

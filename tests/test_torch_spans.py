@@ -98,25 +98,28 @@ def _model(cfg, batches, classes, seed=1):
                      generator=torch.Generator().manual_seed(seed))
 
 
-def _graphed_epochs(parts, kw, epochs=2):
-    """Train ``epochs`` graphed epochs and eval after each (fake capture);
-    the loss sums, F1 sums and parameters."""
+def _graphed_epochs(parts, kw, epochs=2, loop=False):
+    """Train ``epochs`` graphed epochs (fake capture; with ``loop`` on the
+    loop route) and eval after each; the loss sums, F1 sums and
+    parameters."""
     batches, plan, q, classes = parts
     cfg = Config(**dict(BASE, **kw))
     tm = _model(cfg, batches, classes)
     opt = DualOptimizer.create(tm, "GCN", cfg.lr, cfg.weight_decay)
     pool = graphed.ShapeClasses(new_pool=lambda: None)
-    steps = make_scan_epoch_step(cfg, tm, opt, q, 3, len(batches), pool)
-    evals = make_scan_eval_step(cfg, tm, q, pool)
-    steps.graphs = graphed.Graphs(_rerun_capture, name="step")
-    evals.graphs = graphed.Graphs(_rerun_capture, name="eval")
+    steps = make_scan_epoch_step(cfg, tm, opt, q, 3, len(batches), pool,
+                                 loop)
+    evals = make_scan_eval_step(cfg, tm, q, pool, loop)
+    if not loop:
+        steps.graphs = graphed.Graphs(_rerun_capture, name="step")
+        evals.graphs = graphed.Graphs(_rerun_capture, name="eval")
     gen = torch.Generator()
     out = []
     for epoch in range(epochs):
-        acc = driver._train_epoch(steps, batches, [3, 0, 1, 2], plan, epoch,
-                                  gen, 0, 0)
+        acc = steps(batches, [3, 0, 1, 2], plan, epoch, gen,
+                    lambda n: driver.batch_seed(0, 0, n))
         out.append([float(v) for v in acc])
-        res = driver._evaluate(evals, batches, [1, 0, 1, 0], gen, 7 + epoch)
+        res = evals(batches, [1, 0, 1, 0], gen, 7 + epoch)
         out.append([float(res[k]) for k in sorted(res)])
     return out, [p.detach().clone() for p in tm.parameters()]
 
@@ -160,6 +163,37 @@ def test_graphed_epoch_is_the_same_with_spans_and_stamps_on(parts, kw):
     for a, b in zip(on[1], off[1]):
         assert torch.equal(a, b)
     assert spans.collect()["spans"]["step"]["calls"] == 2 * 3
+
+
+def test_loop_route_opens_the_schedule_spans_but_no_slot_or_load(
+        parts, monkeypatch):
+    """The loop route: the same outputs and the same stamps, in order and
+    by name, as the graphed route, the ``step`` and ``eval`` spans per
+    batch and call, and no buffers, loads, graphs or replays."""
+    names = []
+    monkeypatch.setattr(spans, "_launch",
+                        lambda name, device: names.append(name))
+    spans.enable(device_stamps=True)
+    graphed_out = _graphed_epochs(parts, LEARNED)
+    graphed_names = list(names)
+    assert "step.backbone" in graphed_names
+    assert "eval.backbone" in graphed_names
+    spans.reset()
+    names.clear()
+    loop_out = _graphed_epochs(parts, LEARNED, loop=True)
+    assert names == graphed_names
+    assert loop_out[0] == graphed_out[0]
+    for a, b in zip(loop_out[1], graphed_out[1]):
+        assert torch.equal(a, b)
+    got = spans.collect()
+    assert got["spans"]["step"]["calls"] == 2 * 3
+    assert got["spans"]["eval"]["calls"] == 2
+    assert got["spans"]["eval.batch"]["calls"] == 2 * 4
+    for name in ("step", "eval"):
+        for part in ("slot", "load", "replay"):
+            assert f"{name}.{part}" not in got["spans"]
+    assert not any(k.startswith("graph.") for k in got["spans"])
+    assert not any(k.startswith("graph.") for k in got["counters"])
 
 
 def test_predict_is_the_same_with_spans_and_stamps_on(parts, monkeypatch):
