@@ -261,13 +261,17 @@ KERNEL_FUNCS = {
     # the ordered top-q draw: keys and three digit passes, count, write
     "topq": ("topq_keys_kernel", "topq_pass_kernel", "topq_count_kernel",
              "topq_write_kernel"),
+    # K1's and K2's VJP: the cotangent rows at the ids
+    "rows_at": ("rows_at_kernel",),
 }
 SPMM_BIN_FUNCS = ("spmm_bin_count_kernel", "spmm_bin_scatter_kernel")
 # The learned pipelines, each with bench.py's flags, and the launches of one
 # step (conditional, sparse_edge_mlp, reg1, reg2). In every pipeline K1
 # runs once in each GCN layer's SpMM and once in each backward of one that
-# has gradients, plus the 2 row gathers of reg2; K2 once in each GCN layer
-# (its backward is a row gather, no launch).
+# has gradients, plus the 2 row gathers of reg2; K2 once in each GCN layer.
+# K1's and K2's own backward is one row gather ("rows_at") a call with
+# gradients: the 6 layers' K1 and the learned backbone's 2 K2 (its edge
+# weights), so 8 in every pipeline.
 #   hybrid_rescore (tile index): 6 layers with gradients (scorer encoder 2,
 #     learned backbone 2, random backbone 2): K1 6 + 6 + 2; K6 scores every
 #     tile slot; the head on the q sorted winners is K3 with a sorted side
@@ -283,7 +287,8 @@ SPMM_BIN_FUNCS = ("spmm_bin_count_kernel", "spmm_bin_scatter_kernel")
 #     (``pipeline_launches``; on the card at the bench partition's size).
 # Every pipeline draws twice a step (the conditional gate's random
 # subgraph and the learned sample): the ordered top-q kernel, twice.
-_ROWS = {"scatter_add": 14, "segment_sum_scalar": 6, "topq": 2}
+_ROWS = {"scatter_add": 14, "segment_sum_scalar": 6, "topq": 2,
+         "rows_at": 8}
 _UNFUSED = dict(_ROWS, scatter_add=15, scatter_add_sorted=1)
 PIPELINES = {
     "hybrid_rescore": (dict(pipeline="hybrid"), TRAIN_STEPS, dict(
@@ -297,8 +302,9 @@ PIPELINES = {
                                 hybrid_checkpoint=True), PIPELINE_STEPS,
                            _UNFUSED),
     "two_pass": (dict(pipeline="two_pass"), PIPELINE_STEPS, dict(
-        scatter_add=16, segment_sum_scalar=8, topq=2, score_head_sampled=1,
-        score_head_sampled_banded=1, score_head_bwd=1)),
+        scatter_add=16, segment_sum_scalar=8, topq=2, rows_at=8,
+        score_head_sampled=1, score_head_sampled_banded=1,
+        score_head_bwd=1)),
 }
 GRAD_CHECKED = ("hybrid_rescore", "straight_through", "hybrid_exact")
 # The models phase: one hybrid_rescore step (tile index, bench.py's flags)
@@ -322,6 +328,13 @@ GRAD_CHECKED = ("hybrid_rescore", "straight_through", "hybrid_exact")
 MODEL_SCORER_ROWS = {"MLP": (0, 0), "GSAGE": (1, 1), "GCN": (4, 2)}
 MODEL_BACKBONE_ROWS = {"GCN": (4, 2), "GIN": (3, 0), "GAT": (4, 8),
                        "Cheb": (0, 0)}
+# K1's and K2's backward ("rows_at"), one per call with gradients: the GCN
+# scorer's 2 K1; per backbone run (learned, random) GCN's 2 K1 and, in the
+# learned run, the 2 K2 of its edge weights; GIN's second layer's K1; GAT's
+# 2 K1 and 2 K2 (the softmax denominators) in both runs.
+MODEL_SCORER_VJP = {"MLP": 0, "GSAGE": 0, "GCN": 2}
+MODEL_BACKBONE_VJP = {"GCN": (4, 2), "GIN": (1, 1), "GAT": (4, 4),
+                      "Cheb": (0, 0)}
 MODEL_PAIRS = tuple((g, s) for g in MODEL_BACKBONE_ROWS
                     for s in MODEL_SCORER_ROWS)
 MODEL_STEPS = 5               # timed steps of each pair
@@ -346,11 +359,12 @@ def model_launches(gnn, scorer):
     (s1, s2), (b1, b2) = MODEL_SCORER_ROWS[scorer], MODEL_BACKBONE_ROWS[gnn]
     out = dict(scatter_add=s1 + 2 * b1 + 2, segment_sum_scalar=s2 + 2 * b2,
                score_head_tiles=1, score_head_sampled_banded=1,
-               score_head_bwd=1, topq=2)
+               score_head_bwd=1, topq=2,
+               rows_at=MODEL_SCORER_VJP[scorer] + sum(MODEL_BACKBONE_VJP[gnn]))
     return {k: v for k, v in out.items() if v}
 # GCNConv(backend="fused"), two layers forward + backward: K2 once each, K8
-# forward and dx once each
-FUSED_LAUNCHES = {"segment_sum_scalar": 2, "spmm_fused": 4}
+# forward and dx once each, K2's backward once (the weighted layer's)
+FUSED_LAUNCHES = {"segment_sum_scalar": 2, "spmm_fused": 4, "rows_at": 1}
 # The dense phase: dense_subgraph='on' on the bench partition (N=2048 <=
 # dense_threshold) for hybrid_rescore (tile index), two_pass and the GAT
 # backbone with the GCN scorer under hybrid_rescore: (train phase's
@@ -358,9 +372,10 @@ FUSED_LAUNCHES = {"segment_sum_scalar": 2, "spmm_fused": 4}
 # selections zeroed), so the scorer's encoder (every pass, two_pass's
 # re-scoring pass on the winners' own (N, N) build too) and the random
 # backbone forward aggregate with (N, N) products and launch no K1 or K2.
-# What stays: the learned backbone's rows (MODEL_BACKBONE_ROWS) and reg2's
-# two row gathers (K1 2); the head kernels and the two draws as on the
-# sparse route.
+# What stays: the learned backbone's rows (MODEL_BACKBONE_ROWS; its
+# backward's rows_at, MODEL_BACKBONE_VJP's learned run) and reg2's two row
+# gathers (K1 2); the head kernels and the two draws as on the sparse
+# route.
 DENSE_PATHS = {"hybrid_rescore": ("hybrid_rescore", "GCN"),
                "two_pass": ("two_pass", "GCN"),
                "GAT+GCN": ("hybrid_rescore", "GAT")}
@@ -370,8 +385,9 @@ def dense_launches(pipeline, gnn):
     """The launches of one dense_subgraph='on' step (see above)."""
     b1, b2 = MODEL_BACKBONE_ROWS[gnn]
     out = {k: v for k, v in PIPELINES[pipeline][2].items()
-           if k not in ("scatter_add", "segment_sum_scalar")}
-    out.update(scatter_add=b1 + 2, segment_sum_scalar=b2)
+           if k not in ("scatter_add", "segment_sum_scalar", "rows_at")}
+    out.update(scatter_add=b1 + 2, segment_sum_scalar=b2,
+               rows_at=MODEL_BACKBONE_VJP[gnn][0])
     return {k: v for k, v in out.items() if v}
 
 
@@ -922,7 +938,59 @@ def phase_kernels(torch, g):
         emit("kernel", name="score_head_sampled", **cases[-1])
     results["score_head_sampled"] = dict(cases[0], cases=cases)
     results["topq"] = topq_case(torch, g, gen)
+    results["rows_at"] = rows_at_case(torch, gen)
     return results
+
+
+# K1's and K2's VJP at the trained cells' shapes: q = 200,000 sampled ids
+# of a part of N = 2,123; GCN's bf16 messages (F = 256, 41), GAT's and
+# GIN's f32 ones, K2's (N,) cotangent (F None)
+ROWS_AT_CASES = ((256, "bfloat16"), (41, "bfloat16"), (256, "float32"),
+                 (None, "float32"))
+ROWS_AT_N = 2123
+
+
+def rows_at_case(torch, gen):
+    """``rows_at_cast`` (csrc/rows_at.cu) against the chain it replaced,
+    ``rows_at(g, ids, n).to(dtype)`` (the plain version): bit for bit, with
+    -1, n and 2**31 - 1 among the ids; each timed in a CUDA graph
+    (``graph_ms``, ``plain_graph_ms``) and back to back (``ms``,
+    ``plain_ms``), the kernel also by the profiler; bound: the output
+    written, the ids and the cotangent read once."""
+    from sgs_gnn_tpu_torch.ops import scatter as sc
+    n, e, dev = ROWS_AT_N, Q, gen.device
+    cases = []
+    for f, dt in ROWS_AT_CASES:
+        dtype = getattr(torch, dt)
+        g = torch.randn((n,) if f is None else (n, f), generator=gen,
+                        device=dev)
+        ids = torch.randint(0, n, (e,), generator=gen, device=dev,
+                            dtype=torch.int32)
+        ids[:3] = torch.tensor([-1, n, 2 ** 31 - 1], dtype=torch.int32)
+        out = sc.rows_at_cast(g, ids, n, dtype)
+        ref = sc.rows_at(g, ids, n).to(dtype)
+        bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+        equal = bool(torch.equal(out.view(bits), ref.view(bits)))
+        check(equal, f"rows_at F={f} {dt}: not the plain chain bit for bit")
+        width = 1 if f is None else f
+        nbytes = e * width * out.element_size() + 4 * e + 4 * n * width
+        cases.append(dict(
+            case=f"E={e} N={n} F={f} f32 -> {dt}", max_abs_err=0.0,
+            tolerance="bit for bit",
+            **timed(torch, "rows_at",
+                    lambda: sc.rows_at_cast(g, ids, n, dtype)),
+            graph_ms=graph_ms(torch, lambda: sc.rows_at_cast(g, ids, n,
+                                                            dtype)),
+            plain_ms=cuda_ms(torch, lambda: sc.rows_at(g, ids, n).to(dtype)),
+            plain_graph_ms=graph_ms(
+                torch, lambda: sc.rows_at(g, ids, n).to(dtype)),
+            library_ms=None,
+            library="the plain version is the replaced library chain",
+            bound_ms=nbytes / HBM_BPS * 1e3, bound_by="bytes"))
+        cases[-1]["graph_bound_share"] = \
+            cases[-1]["bound_ms"] / cases[-1]["graph_ms"]
+        emit("kernel", name="rows_at", **cases[-1])
+    return dict(cases[0], cases=cases)
 
 
 def topq_case(torch, g, gen):
@@ -2365,7 +2433,8 @@ def _halo_parity(torch, ds):
         halo(hb, 1, 22, gen)
     torch.cuda.synchronize()
     launches = dict(LAUNCHES)
-    check(set(launches) == set(ROWS), f"halo full step launches {launches}")
+    check(set(launches) == set(ROWS) | {"rows_at"},
+          f"halo full step launches {launches}")
     times = _turns(torch, {
         "full_graph": lambda i: seq(gfull, 2 + i, gen.manual_seed(
             rank_seed(300 + i, 0))),
@@ -2396,7 +2465,7 @@ PARALLEL_RUNS = (("learned", "data_parallel", ("--data_parallel", "on")),
                  ("learned", "halo", ("--halo", "true")),
                  ("full", "halo", ("--halo", "true")))
 HALO_LEARNED = ("scatter_add", "segment_sum_scalar", "score_head_sampled",
-                "score_head_bwd", "topq")
+                "score_head_bwd", "topq", "rows_at")
 
 
 def phase_parallel_experiment(torch, ds, results_dir):
@@ -2433,8 +2502,8 @@ def phase_parallel_experiment(torch, ds, results_dir):
             check(set(launches) == set(HALO_LEARNED),
                   f"{label}: launched {launches}")
         else:
-            check(set(launches) == set(ROWS), f"{label}: launched "
-                                              f"{launches}")
+            check(set(launches) == set(ROWS) | {"rows_at"},
+                  f"{label}: launched {launches}")
         emit("experiment", mode=mode, route=route, model="GCN+GCN",
              nodes=ds.num_nodes, edges=ds.num_edges, plan=res.plan,
              epoch_s=res.epoch_times,
@@ -2721,12 +2790,12 @@ def _experiment_line(mode, ds, data_s, res, lines, per_epoch, launches,
 
 
 def _check_launches(mode, route, launches, model="GCN+GCN"):
-    """Training launches K1 and K2 (learned: every head kernel too); the
-    eval, which has no backward, aggregates its GCN layers on K8 on the
-    card (every part of the experiment graph, ~1.8k nodes and ~0.2-1M
-    edges, takes tiles: ``k8_forward``) and on K1 elsewhere; GAT and
-    GraphSAGE aggregate on K1 and K2 alone. The random and edge modes'
-    draws run the ordered top-q kernel on the card."""
+    """Training launches K1, K2 and their backward (learned: every head
+    kernel too); the eval, which has no backward, aggregates its GCN
+    layers on K8 on the card (every part of the experiment graph, ~1.8k
+    nodes and ~0.2-1M edges, takes tiles: ``k8_forward``) and on K1
+    elsewhere; GAT and GraphSAGE aggregate on K1 and K2 alone. The random
+    and edge modes' draws run the ordered top-q kernel on the card."""
     heads = {k: launches.get(k, 0) for k in HEADS}
     check(all(launches.get(k, 0) > 0 for k in ROWS),
           f"{mode} {route}: K1/K2 not launched: {launches}")
@@ -2740,9 +2809,9 @@ def _check_launches(mode, route, launches, model="GCN+GCN"):
         check(all(heads.values()), f"learned {route}: a head kernel (K3-K6) "
                                    f"was not launched: {launches}")
     else:
-        check(set(launches) == set(ROWS) | evals | draws,
-              f"{mode} {route}: launched more than K1, K2, the eval's "
-              f"K8 and the draws: {launches}")
+        check(set(launches) == set(ROWS) | {"rows_at"} | evals | draws,
+              f"{mode} {route}: launched more than K1, K2, their "
+              f"backward, the eval's K8 and the draws: {launches}")
 
 
 def _compare_routes(mode, graphed, eager, model="GCN+GCN"):
@@ -3165,7 +3234,7 @@ def reddit_launches(plan, draws, k8):
     valid edges is a small one, in training and in the eval):
       train, per sampled batch the hybrid_rescore step's (PIPELINES); per
         small batch the backbone on all its edges with gradients (2 GCN
-        layers: K1 forward and backward 4, K2 2);
+        layers: K1 forward and backward 4, K2 2, K1's backward 2);
       eval, per sampled batch the scorer's encoder over every edge (2 GCN
         layers: K1 2, K2 2), K3 over every edge, then per draw the
         backbone (K1 2, K2 2); per small batch the backbone once (K1 2,
@@ -3177,6 +3246,7 @@ def reddit_launches(plan, draws, k8):
     train = {k: v * big for k, v in PIPELINES["hybrid_rescore"][2].items()}
     train["scatter_add"] += 4 * small
     train["segment_sum_scalar"] += 2 * small
+    train["rows_at"] += 2 * small
     rows = (2 + 2 * draws) * big + 2 * small
     return train, dict(forward_rows(rows * (1 - k8), rows * k8),
                        segment_sum_scalar=rows, score_head_sampled=big,
@@ -3586,15 +3656,17 @@ def phase_embeddings(torch, arrays):
 # gather both endpoints, whose backward is K1 on each side, in place of K3
 # (twice) and K5. So one step launches K1 4 (scorer encoder) + 2 (the
 # head's gathers) + 8 (learned and random backbones) + 2 (reg2) = 16 and
-# K2 6, and no head kernel. Parity: one step against the sequential step
-# from equal parameters, sample frozen (the two heads' probabilities
+# K2 6, K1's and K2's backward 8 (as the sequential step's), and no head
+# kernel. Parity: one step against the sequential step from equal
+# parameters, sample frozen (the two heads' probabilities
 # differ by bf16 roundings, which would move Gumbel top-k picks), dropout
 # and the conditional gate off (every parameter gets a gradient; the
 # fused head's hash32 mask and the unfused head's generator mask are other
 # draws); limits the grad_check's bf16 ones (1% on the loss, GRAD_REL_TOL
 # per gradient), since the unfused head rounds to bf16 where K3 and K5
 # keep f32 (ROADMAP §3), with a second sequential copy's gap beside them.
-TP_LAUNCHES = {"scatter_add": 16, "segment_sum_scalar": 6, "topq": 2}
+TP_LAUNCHES = {"scatter_add": 16, "segment_sum_scalar": 6, "topq": 2,
+               "rows_at": 8}
 TP_HEAD_KERNELS = ("score_head_sampled", "score_head_sampled_banded",
                    "score_head_bwd", "score_head_tiles")
 TP_LOSS_RTOL = 1e-2

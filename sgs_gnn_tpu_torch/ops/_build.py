@@ -53,7 +53,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("scatter.cu", "segment_sum.cu", "score_sampled.cu",
            "score_tiles.cu", "scatter_sorted.cu", "spmm.cu", "stamp.cu",
-           "topq.cu")
+           "topq.cu", "rows_at.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -85,6 +85,7 @@ _SIGNATURES = {
     "sgs_spmm_fused": [_P, _P, _P, _P, _I, _P, _L, _I, _I, _I, _I, _P, _P],
     "sgs_stamp": [_P, _P, _I, _P],
     "sgs_topq": [_P, _P, _P, _L, _L, _P, _L, _P, _P],
+    "sgs_rows_at": [_P, _P, _P, _I, _L, _I, _I, _I, _P],
 }
 
 

@@ -51,8 +51,11 @@ Ids outside [0, N) are dropped, as ``jax.ops.segment_sum`` drops them.
 ``scatter_add`` and ``segment_sum_scalar`` are differentiable in their
 values through ``autograd.Function``s:
 the VJP of a segment sum is a gather of the cotangent at the ids
-(``scatter_pallas.py:332-333``), zero for dropped ids. The gather is a plain
-row index on either device: it is no TPU kernel's counterpart.
+(``scatter_pallas.py:332-333``, XLA's ``g[ids]``), zero for dropped ids, in
+the values' dtype: :func:`rows_at_cast`. On the CPU it is the plain
+``rows_at(g, ids, n).to(dtype)``; on a card one pass of ``csrc/rows_at.cu``,
+which reads each cotangent row from L2 and writes each output element once
+(no TPU kernel's counterpart).
 """
 from __future__ import annotations
 
@@ -283,6 +286,35 @@ def rows_at(g, ids, num_segments: int):
     return torch.where(keep.reshape((-1,) + (1,) * (g.dim() - 1)), rows, 0)
 
 
+def rows_at_cast(g, ids, num_segments: int, dtype):
+    """``rows_at(g, ids, num_segments).to(dtype)``: the VJP of K1 (an (N, F)
+    ``g``) and of K2 (an (N,) ``g``), bit for bit. The plain version on the
+    CPU; on a card one launch of ``csrc/rows_at.cu`` into an uninitialised
+    (E, F) or (E,) output, in 16-byte units where F and ``g``'s alignment
+    allow, else element by element. ``g`` is f32 there: autograd hands
+    both sums' backward the dtype of their f32 output."""
+    if g.device.type == "cpu":
+        return rows_at(g, ids, num_segments).to(dtype)
+    g = g.contiguous()
+    _build.check_cuda("rows_at", g, ids)
+    if g.dtype != torch.float32 or \
+            dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"rows_at: g {g.dtype} to {dtype}, want float32 "
+                        "to float32 or bfloat16")
+    if ids.dtype != torch.int32:
+        raise TypeError(f"rows_at: ids dtype {ids.dtype}, want int32")
+    out = torch.empty(ids.shape + g.shape[1:], dtype=dtype, device=g.device)
+    if out.numel() == 0:
+        return out
+    f = g.shape[1] if g.dim() == 2 else 1
+    vec = 16 // out.element_size()
+    vector = f % vec == 0 and g.data_ptr() % 16 == 0
+    _build.call("rows_at", "sgs_rows_at", g.device, g.data_ptr(),
+                ids.data_ptr(), out.data_ptr(), int(dtype == torch.bfloat16),
+                ids.shape[0], f, num_segments, int(vector))
+    return out
+
+
 class _ScatterAdd(torch.autograd.Function):
     @staticmethod
     def forward(ctx, vals, ids, num_segments):
@@ -294,8 +326,8 @@ class _ScatterAdd(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         ids, = ctx.saved_tensors
-        return rows_at(g, ids, ctx.num_segments).to(ctx.vals_dtype), None, \
-            None
+        return rows_at_cast(g, ids, ctx.num_segments, ctx.vals_dtype), \
+            None, None
 
 
 class _SegmentSumScalar(torch.autograd.Function):
@@ -309,7 +341,8 @@ class _SegmentSumScalar(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         ids, = ctx.saved_tensors
-        return rows_at(g, ids, ctx.num_segments).to(ctx.w_dtype), None, None
+        return rows_at_cast(g, ids, ctx.num_segments, ctx.w_dtype), None, \
+            None
 
 
 def scatter_add(vals, ids, num_segments: int):

@@ -794,6 +794,158 @@ def test_segment_sum_autograd_on_card(card):
     assert dx.shape == x.shape
 
 
+# K1's and K2's VJP on the card (ops/scatter.py rows_at_cast,
+# csrc/rows_at.cu): bit for bit the plain rows_at(g, ids, n).to(dtype) it
+# replaced. The cells' shapes (E = 200,000 sampled ids of a part of N =
+# 2,123: GCN's bf16 messages at F = 256 and 41, GAT's and GIN's f32 ones,
+# K2's (N,) cotangent), then the CPU test's cases: narrow and odd widths,
+# E = 0.
+ROWS_AT_CASES = [(2123, 200_000, 256, torch.bfloat16),
+                 (2123, 200_000, 41, torch.bfloat16),
+                 (2123, 200_000, 256, torch.float32),
+                 (2123, 200_000, 41, torch.float32),
+                 (2123, 200_000, None, torch.float32),
+                 (37, 1001, 1, torch.bfloat16),
+                 (37, 1001, 8, torch.bfloat16),
+                 (37, 1001, 4, torch.float32),
+                 (5, 333, 300, torch.float32),
+                 (37, 0, 256, torch.bfloat16),
+                 (37, 0, None, torch.float32)]
+BAD_IDS = (-1, -(2 ** 31), 2 ** 31 - 1)
+
+
+def _rows_at_inputs(card, n, e, f, seed):
+    """A cotangent (n, f) (or (n,) for f None) and int32 ids in [0, n) with
+    -1, n, 2**31 - 1 and -2**31 among them."""
+    gen = torch.Generator(device=card).manual_seed(seed)
+    shape = (n,) if f is None else (n, f)
+    g = torch.randn(shape, generator=gen, device=card)
+    ids = _ids(card, gen, n, e)
+    for j, bad in enumerate(BAD_IDS + (n,)):
+        ids[j * 7 % max(e, 1):][:1] = bad
+    return g, ids
+
+
+def _bits(t):
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+def _launched(run):
+    before = dict(LAUNCHES)
+    out = run()
+    torch.cuda.synchronize()
+    return out, {k: v - before.get(k, 0) for k, v in LAUNCHES.items()
+                 if v != before.get(k, 0)}
+
+
+@pytest.mark.parametrize("n,e,f,dtype", ROWS_AT_CASES)
+def test_rows_at_kernel_is_the_plain_chain_bit_for_bit(card, n, e, f,
+                                                       dtype):
+    g, ids = _rows_at_inputs(card, n, e, f, seed=n + e)
+    out, launched = _launched(lambda: sc.rows_at_cast(g, ids, n, dtype))
+    ref = sc.rows_at(g, ids, n).to(dtype)
+    assert launched == ({"rows_at": 1} if e else {})
+    assert out.dtype == dtype and out.shape == ref.shape
+    assert torch.equal(_bits(out), _bits(ref))
+    # the K1 and K2 wrappers: their backward is this launch
+    vals = torch.zeros(ids.shape + g.shape[1:], dtype=dtype, device=card,
+                       requires_grad=True)
+    fwd = sc.scatter_add if f is not None else sc.segment_sum_scalar
+    y = fwd(vals, ids, n)
+    (dv,), launched = _launched(lambda: torch.autograd.grad(y, vals, g))
+    assert launched == ({"rows_at": 1} if e else {})
+    assert dv.dtype == dtype and torch.equal(_bits(dv), _bits(ref))
+
+
+@pytest.mark.parametrize("how", ["strided", "expanded", "misaligned"])
+def test_rows_at_kernel_odd_cotangents(card, how):
+    """A cotangent autograd may hand over: strided, expanded, or a view 4
+    bytes off 16-byte alignment (the element route)."""
+    n, e, f = 300, 5000, 64
+    _, ids = _rows_at_inputs(card, n, e, f, seed=5)
+    if how == "strided":
+        g = torch.randn(f, n, device=card).t()
+    elif how == "expanded":
+        g = torch.randn(1, f, device=card).expand(n, f)
+    else:
+        g = torch.randn(n * f + 1, device=card)[1:].view(n, f)
+        assert g.data_ptr() % 16 != 0
+    bf16 = torch.bfloat16
+    out, launched = _launched(lambda: sc.rows_at_cast(g, ids, n, bf16))
+    assert launched == {"rows_at": 1}
+    assert torch.equal(_bits(out), _bits(sc.rows_at(g, ids, n).to(bf16)))
+
+
+def test_rows_at_kernel_in_a_cuda_graph(card):
+    n, e, f = 2123, 200_000, 256
+    g, ids = _rows_at_inputs(card, n, e, f, seed=8)
+    static_g = g.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        sc.rows_at_cast(static_g, ids, n, torch.bfloat16)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = sc.rows_at_cast(static_g, ids, n, torch.bfloat16)
+    for seed in (1, 2):
+        static_g.copy_(torch.randn(n, f, device=card,
+                                   generator=torch.Generator(
+                                       device=card).manual_seed(seed)))
+        graph.replay()
+        torch.cuda.synchronize()
+        ref = sc.rows_at(static_g, ids, n).to(torch.bfloat16)
+        assert torch.equal(_bits(out), _bits(ref))
+
+
+def test_k1_backward_launches_one_kernel_under_the_profiler(card):
+    """K1's backward on the card: one kernel, rows_at_kernel; no where,
+    index or gather of the library."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    n, e, f = 2123, 200_000, 256
+    g, ids = _rows_at_inputs(card, n, e, f, seed=3)
+    vals = torch.zeros(e, f, dtype=torch.bfloat16, device=card,
+                       requires_grad=True)
+    y = sc.scatter_add(vals, ids, n)
+    torch.autograd.grad(y, vals, g, retain_graph=True)     # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.autograd.grad(y, vals, g)
+        torch.cuda.synchronize()
+    names = [ev.name for ev in prof.events()
+             if ev.device_type == DeviceType.CUDA]
+    assert len(names) == 1 and "rows_at_kernel" in names[0], names
+
+
+def test_rows_at_launches_are_the_backward_calls_of_a_graphed_step(
+        card, monkeypatch):
+    """LAUNCHES["rows_at"] over a graphed GCN learned epoch: one launch
+    per K1 and K2 backward, in the eager first calls and in each graph's
+    tally (which every replay adds)."""
+    from sgs_gnn_tpu_torch import Config
+    from sgs_gnn_tpu_torch.train import make_scan_epoch_step
+    calls = collections.Counter()
+    for cls in (sc._ScatterAdd, sc._SegmentSumScalar):
+        def backward(ctx, g, _orig=cls.backward):
+            calls["capture" if torch.cuda.is_current_stream_capturing()
+                  else "eager"] += 1
+            return _orig(ctx, g)
+        monkeypatch.setattr(cls, "backward", staticmethod(backward))
+    cfg = Config(**GRAPHED_BASE, **GRAPHED_KW["hybrid_rescore"])
+    batches, plan, q, classes = _graphed_batches(card, cfg)
+    tm, opt = _graphed_model(card, cfg, batches, classes)
+    steps = make_scan_epoch_step(cfg, tm, opt, q, 4, len(batches))
+    LAUNCHES.clear()
+    _run_epochs(steps, batches, plan, 2, torch.Generator(device=card))
+    torch.cuda.synchronize()
+    caps = list(steps.graphs.by_key.values())
+    assert sum(c.replays for c in caps) > 0
+    assert sum(c.launches["rows_at"] for c in caps) == calls["capture"] > 0
+    replayed = sum(c.launches["rows_at"] * c.replays for c in caps)
+    assert LAUNCHES["rows_at"] - replayed == calls["eager"] > 0
+
+
 def test_gather_rows_sorted_band_on_card(card):
     g = torch.Generator(device=card).manual_seed(9)
     n, e, f = 300, 40_000, 64
@@ -1300,17 +1452,18 @@ def test_resumed_state_replays_into_graphs_captured_before(card):
 # rounding: chip_smoke.py's grad_check limits, 1% and 5%. Launches per
 # step (derived as chip_smoke.py's ``model_launches``): the scorer's GCN
 # encoder (K1 4, K2 2) and the random forward (GCN K1 4, K2 2; GAT K1 4,
-# K2 8) leave K1 and K2; the learned backbone and reg2 (K1 2) stay. On
+# K2 8) leave K1 and K2; the learned backbone and reg2 (K1 2) stay, and
+# the learned backbone's backward of its K1 and K2 (rows_at 4). On
 # the sparse route two_pass's first pass (no backward) aggregates its bf16
 # encoder on K8 (``ops/spmm.py`` ``auto_route``: 2 launches), which the
 # dense route replaces too.
 DENSE_CASES = {
-    "hybrid_gcn": (dict(pipeline="hybrid"), dict(scatter_add=6,
-                                                 segment_sum_scalar=2)),
-    "two_pass_gcn": (dict(pipeline="two_pass"), dict(scatter_add=6,
-                                                     segment_sum_scalar=2)),
-    "hybrid_gat": (dict(pipeline="hybrid", GNN="GAT"),
-                   dict(scatter_add=6, segment_sum_scalar=8)),
+    "hybrid_gcn": (dict(pipeline="hybrid"), dict(
+        scatter_add=6, segment_sum_scalar=2, rows_at=4)),
+    "two_pass_gcn": (dict(pipeline="two_pass"), dict(
+        scatter_add=6, segment_sum_scalar=2, rows_at=4)),
+    "hybrid_gat": (dict(pipeline="hybrid", GNN="GAT"), dict(
+        scatter_add=6, segment_sum_scalar=8, rows_at=4)),
 }
 
 

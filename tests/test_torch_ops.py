@@ -187,3 +187,42 @@ def test_required_band_matches_jax(rng, n, e, block):
     ids = np.sort(rng.integers(0, n, e)).astype(np.int32)
     assert required_band(ids, block) == jax_required_band(ids, block)
     assert required_band(ids[:0]) == jax_required_band(ids[:0])
+
+
+# K1's and K2's VJP (ops/scatter.py rows_at_cast): the cotangent rows at the
+# ids, zero where an id is out of range, in the values' dtype; on the CPU the
+# plain rows_at(g, ids, n).to(dtype) that the card's kernel reproduces bit for
+# bit (tests/test_torch_cuda.py), held here to a numpy gather too.
+ROWS_AT_IDS = {"in_range": None, "minus_one": -1, "n": "n",
+               "int32_max": 2 ** 31 - 1}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("f", [None, 41, 256])     # None: K2's (E,) values
+@pytest.mark.parametrize("case", list(ROWS_AT_IDS) + ["empty", "strided"])
+def test_segment_sum_backward_is_rows_at_cast(rng, dtype, f, case):
+    from sgs_gnn_tpu_torch.ops import scatter as sc
+    n, e = 37, 0 if case == "empty" else 300
+    ids = rng.integers(0, n, e).astype(np.int32)
+    bad = ROWS_AT_IDS.get(case)
+    if bad is not None:
+        ids[rng.permutation(e)[:e // 3]] = n if bad == "n" else bad
+    shape = (n,) if f is None else (n, f)
+    g_np = rng.normal(size=shape).astype(np.float32)
+    g = _t(g_np)
+    if case == "strided":        # autograd may hand over a strided g
+        g = _t(np.ascontiguousarray(g_np.T)).T if f else _t(
+            np.repeat(g_np, 2))[::2]
+        assert not g.is_contiguous()
+    vals = torch.zeros(ids.shape + shape[1:], dtype=dtype,
+                       requires_grad=True)
+    fwd = sc.segment_sum_scalar if f is None else sc.scatter_add
+    dv, = torch.autograd.grad(fwd(vals, _t(ids), n), vals, g)
+    want = sc.rows_at(g, _t(ids), n).to(dtype)
+    assert dv.dtype == dtype and dv.shape == vals.shape
+    assert torch.equal(dv, want)
+    assert torch.equal(sc.rows_at_cast(g, _t(ids), n, dtype), want)
+    keep = (ids >= 0) & (ids < n)
+    rows = np.where(keep.reshape((-1,) + (1,) * (len(shape) - 1)),
+                    g_np[np.where(keep, ids, 0)], 0.0)
+    assert torch.equal(dv, torch.from_numpy(rows).to(dtype))
