@@ -234,6 +234,9 @@ F32_FLOPS = 67e12
 
 N_NODES, N_EDGES, FEAT, CLASSES, NHID, Q, DRAWS = (2048, 1_000_000, 602, 41,
                                                    256, 200_000, 11)
+# GCNII's propagation (benchmark cell gcnii_reddit.serve_predict): a part's
+# rows, the width; the small part's edges, all taken by a request
+GCNII_N, GCNII_F, GCNII_SMALL_E = 2123, 2048, 45_342
 CPU_SUBSAMPLE = 65_536     # edges scored by the CPU f32 reference
 DROP = 0.3                 # Config.drop_rate, the head kernels' dropout
 DEVICE = "cuda"            # the card (a CPU rehearsal sets "cpu")
@@ -432,10 +435,11 @@ def cuda_ms(torch, fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def device_ms(torch, fn, funcs, iters=5):
+def device_ms(torch, fn, funcs, iters=5, launches=None):
     """The device time per call of the kernels whose names hold one of
     ``funcs`` over ``iters`` calls of ``fn`` under torch.profiler (after
-    one warm-up call): (total ms, {kernel name: ms})."""
+    one warm-up call): (total ms, {kernel name: ms}); ``launches``, a dict
+    if given, gets {kernel name: launches per call}."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -445,18 +449,21 @@ def device_ms(torch, fn, funcs, iters=5):
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        by_name, seen = {}, 0
+        by_name, seen, count = {}, 0, {}
         for e in prof.events():
             if e.device_type != DeviceType.CUDA:
                 continue
             hit = next((f for f in funcs if f in e.name), None)
             if hit is not None:
                 seen += 1
+                count[hit] = count.get(hit, 0) + 1 / iters
                 by_name[hit] = by_name.get(hit, 0.0) \
                     + e.time_range.elapsed_us() / 1e3 / iters
         # every call launches at least one of ``funcs``: fewer events
         # than calls is a trace that lost records, measured again
         if seen >= iters:
+            if launches is not None:
+                launches.update(count)
             return sum(by_name.values()), by_name
         emit("profiler_retry", funcs=list(funcs), calls=iters,
              events_seen=seen, attempt=attempt + 1)
@@ -753,6 +760,9 @@ def row_cases(torch, g, gen):
     from sgs_gnn_tpu_torch.sparsify import sample_prior_edges
     idx = sample_prior_edges(gen, g.prob, Q, g.edge_mask).long()
     srt = idx.sort().values
+    small = torch.randperm(N_EDGES, generator=torch.Generator(
+        device=gen.device).manual_seed(17), device=gen.device)[
+        :GCNII_SMALL_E].sort().values
     bf16, f32 = torch.bfloat16, torch.float32
     # GAT's receivers: the sampled ones with one self-loop per node appended
     looped = torch.cat([g.receivers[idx], torch.arange(
@@ -771,7 +781,11 @@ def row_cases(torch, g, gen):
           ("sampled receivers q=200k F=256 f32", g.receivers[idx], NHID,
            f32),
           ("sampled receivers + self-loops E=q+N F=256 f32", looped, NHID,
-           f32)]
+           f32),
+          # GCNII's propagations over the small part's whole graph (too
+          # sparse for K8's tiles): bf16 rows 2048 wide, receivers sorted
+          (f"sorted receivers E={GCNII_SMALL_E} F={GCNII_F}",
+           g.receivers[small], GCNII_F, bf16)]
     k2 = [("receiver-sorted E=1M", g.receivers),
           ("sampled receivers q=200k", g.receivers[idx]),
           ("sorted receivers q=200k", g.receivers[srt]),
@@ -1358,32 +1372,81 @@ def phase_sparse_kernels(torch, g, results):
             check(k["route"] == "gather", f"spmm_fused {case}: "
                   f"route {k['route']}, expected gather (f32)")
         emit("kernel", name="spmm_fused", **k)
+    cases += gcnii_spmm_cases(torch, sp, g, gen)
     # the main case: the scorer layer's forward (F = nhid, unweighted)
     results["spmm_fused"] = dict(cases[0], cases=cases)
 
 
-def _spmm_case(torch, sp, s, r, w, x, case):
+def gcnii_spmm_cases(torch, sp, g, gen):
+    """K8 at GCNII's propagation: one draw's q prior-sampled edges of ``g``
+    in edge order (receivers sorted) over a part of GCNII_N rows (those
+    above g's N_NODES without edges), GCNII_F bf16 columns, unweighted and
+    weighted (the scorer's probabilities). The plan must be the tile route
+    in 8 column slices of 256, and each call one launch of each of the
+    binning's two kernels and of the tile kernel (the slices are the
+    grid's y, not launches); the sums within ``sum_tolerance`` of the plain
+    version's f64 sum and of the tile schedule in plain torch
+    (``spmm_tiles_plain``, the same plan); a ``kernel`` line each."""
+    from sgs_gnn_tpu_torch.sparsify import sample_prior_edges
+    idx = sample_prior_edges(gen, g.prob, Q, g.edge_mask).long().sort(
+    ).values
+    s, r = g.senders[idx], g.receivers[idx]
+    x = torch.randn(GCNII_N, GCNII_F, generator=gen, device=gen.device).to(
+        torch.bfloat16)
+    plan = sp.spmm_plan(GCNII_N, GCNII_F, Q, 2, sp._sm_count(x.device.index))
+    check((plan.route, plan.width, plan.slices) == ("tiles", 256, 8),
+          f"spmm_fused at N={GCNII_N} F={GCNII_F}: plan {plan}, expected "
+          "tiles in 8 slices of 256")
+    one_each = {k: 1 for k in SPMM_BIN_FUNCS + ("spmm_tile_kernel",)}
+    cases = []
+    for kind in ("unweighted", "weighted"):
+        w = (torch.rand(Q, generator=gen, device=gen.device)
+             if kind == "weighted" else torch.ones(Q, device=gen.device))
+        case = f"GCNII q=200k N={GCNII_N} F={GCNII_F} bf16 {kind}"
+        k = dict(case=case, **_spmm_case(torch, sp, s, r, w, x, case,
+                                         n=GCNII_N))
+        tiles_err, tiles_over = check_sums(
+            f"spmm_fused {case} against the tile schedule",
+            sp._spmm_fused(s, r, w, x, GCNII_N),
+            sp.spmm_tiles_plain(s, r, w, x, GCNII_N, plan).double(),
+            sp.spmm_fused_plain(s, r, w, x.abs(), GCNII_N,
+                                acc_dtype=torch.float64))
+        launches = {f: round(v, 6) for f, v in
+                    k["launches_per_call"].items()}
+        check(k["route"] == "tiles" and launches == one_each,
+              f"spmm_fused {case}: route {k['route']}, launches per call "
+              f"{launches}, expected tiles and {one_each}")
+        k.update(plan=plan._asdict(), tiles_plain_max_abs_err=tiles_err,
+                 tiles_plain_err_over_limit=tiles_over,
+                 bound_share=k["bound_ms"] / k["device_ms"])
+        cases.append(k)
+        emit("kernel", name="spmm_fused", **k)
+    return cases
+
+
+def _spmm_case(torch, sp, s, r, w, x, case, n=N_NODES):
     """One K8 case: its route (counted by the wrapper), the error against
     the plain version's f64 sum (checked), CUDA-event and profiler times,
     the binning's own device time, and the bound: on the tile route the bytes
     12E + N*F*(itemsize + 4) at 3.35 TB/s (the 2EF tensor-core operations
     take less), on the gather route 2EF f32 operations at 67 TFLOP/s; the
     f32-operations count for every route beside it, for comparison with
-    the gather kernel's bound."""
+    the gather kernel's bound; the launches per call by kernel."""
     from sgs_gnn_tpu_torch.ops._build import ROUTES
     before = dict(ROUTES)
-    out = sp._spmm_fused(s, r, w, x, N_NODES)
+    out = sp._spmm_fused(s, r, w, x, n)
     route = next(rt for (kn, rt), v in ROUTES.items()
                  if kn == "spmm_fused" and v > before.get((kn, rt), 0))
     f64 = torch.float64
     err, over = check_sums(
         f"spmm_fused {case}", out,
-        sp.spmm_fused_plain(s, r, w, x, N_NODES, acc_dtype=f64),
-        sp.spmm_fused_plain(s, r, w, x.abs(), N_NODES, acc_dtype=f64))
+        sp.spmm_fused_plain(s, r, w, x, n, acc_dtype=f64),
+        sp.spmm_fused_plain(s, r, w, x.abs(), n, acc_dtype=f64))
     e, f = s.shape[0], x.shape[1]
+    launches = {}
     dev_ms, by_name = device_ms(torch, lambda: sp._spmm_fused(
-        s, r, w, x, N_NODES), KERNEL_FUNCS["spmm_fused"])
-    nbytes = 12 * e + N_NODES * f * (x.element_size() + 4)
+        s, r, w, x, n), KERNEL_FUNCS["spmm_fused"], launches=launches)
+    nbytes = 12 * e + n * f * (x.element_size() + 4)
     old_bound = 2 * e * f / F32_FLOPS * 1e3
     if route == "tiles":
         bound = max(nbytes / HBM_BPS, 2 * e * f / BF16_FLOPS) * 1e3
@@ -1396,12 +1459,12 @@ def _spmm_case(torch, sp, s, r, w, x, case):
         tolerance="1e-5 * sum|w x| per row + 1e-6 against the f64 sum of "
                   "the same products (the tile route's hi + lo weights "
                   "within 2^-17)",
-        ms=cuda_ms(torch, lambda: sp._spmm_fused(s, r, w, x, N_NODES)),
+        ms=cuda_ms(torch, lambda: sp._spmm_fused(s, r, w, x, n)),
         device_ms=dev_ms, device_ms_by_kernel=by_name,
         binning_device_ms=sum(v for k, v in by_name.items()
                               if k in SPMM_BIN_FUNCS),
         bound_ms=bound, bound_by=bound_by,
-        bound_ms_f32_operations=old_bound)
+        bound_ms_f32_operations=old_bound, launches_per_call=launches)
 
 
 def _spmm_coalesced(torch, sp, s, r, w, x, csr):

@@ -31,7 +31,7 @@ DATASETS = [
     'SyntheticRedditLow',
 ]
 
-GNNS = ['GCN', 'GIN', 'GAT', 'Cheb']
+GNNS = ['GCN', 'GIN', 'GAT', 'Cheb', 'GCNII']   # GCNII: the port's alone
 EDGE_MLPS = ['MLP', 'GSAGE', 'GCN']
 PIPELINES = ['two_pass', 'straight_through', 'hybrid']
 MODES = ['learned', 'edge', 'random', 'full']
@@ -222,6 +222,9 @@ class Config:
               f"checkpoint_every={self.checkpoint_every} must be >= 0")
         check(self.dense_subgraph in ("auto", "on", "off"),
               f"dense_subgraph={self.dense_subgraph!r} must be auto|on|off")
+        check(not (self.GNN == 'GCNII' and self.dense_subgraph == 'on'),
+              "GNN='GCNII' has no dense-subgraph route: dense_subgraph='on' "
+              "is refused (auto and off run it sparse)")
         check(self.sorted_head in ("auto", "off"),
               f"sorted_head={self.sorted_head!r} must be auto|off")
         check(self.tile_index in ("auto", "on", "off"),

@@ -1,9 +1,11 @@
 """GNN backbones, each owning an edge-probability scorer (port of
 ``models/backbones.py``): ``GNNModel`` (GCN), ``GINModel``, ``GATModel``
-and ``ChebModel``, each with the MLP, GSAGE or GCN scorer.
+and ``ChebModel``, each with the MLP, GSAGE or GCN scorer; and
+``GCNIIModel``, a deep backbone the JAX package does not have.
 
 Submodule names follow the JAX tree (``gcn1``/``gcn2``, ``GIN_conv1``/
-``GIN_conv2``, ``GAT_conv1``/``GAT_conv2``, ``edge_prob_mlp``): the dual
+``GIN_conv2``, ``GAT_conv1``/``GAT_conv2``, ``edge_prob_mlp``; GCNII's
+``GCNII_in``, ``GCNII_conv<l>``, ``GCNII_out``): the dual
 optimizer (``train/optim.py``) partitions parameters by name, and
 ``models.convert.params_from_jax`` maps the flax tree onto them.
 """
@@ -12,7 +14,9 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from .layers import ChebConv, GATConv, GCNConv, GINConv, col_block
+from .layers import (ChebConv, GATConv, GCN2Conv, GCNConv, GINConv,
+                     col_block, dense, gcn_degree_factors, linear,
+                     masked_weights)
 from .scorers import get_edge_mlp
 from ..core.device import resolve_device, torch_dtype
 from ..ops.dropout import dropout
@@ -20,15 +24,15 @@ from ..ops.dropout import dropout
 
 class _Backbone(nn.Module):
     """Shared part of the backbones: the scorer (registered first, so one
-    generator draws it first), the two layers' forward with dropout
-    between them, and the scorer's entry points. A subclass registers its
-    two layers under their JAX names and returns them from ``layers``.
-    The edge weights go to both layers; GIN and GAT ignore them, as PyG's
-    do. The halo hooks (``exchange``, ``edge_mask``; ``models/layers.py``)
-    pass through to both layers and to the scorer. Under tensor
-    parallelism the dropout between the layers masks this rank's block of
-    the whole mask where the first layer's output is column-sharded (GCN,
-    Cheb); GIN's layers and GAT's give whole rows."""
+    generator draws it first), the forward (:meth:`stack`: two layers with
+    dropout between them), and the scorer's entry points. A subclass
+    registers its two layers under their JAX names and returns them from
+    ``layers``. The edge weights go to both layers; GIN and GAT ignore
+    them, as PyG's do. The halo hooks (``exchange``, ``edge_mask``;
+    ``models/layers.py``) pass through to both layers and to the scorer.
+    Under tensor parallelism the dropout between the layers masks this
+    rank's block of the whole mask where the first layer's output is
+    column-sharded (GCN, Cheb); GIN's layers and GAT's give whole rows."""
 
     def __init__(self, in_channels: int, hidden_dim: int,
                  dropout_prob: float = 0.3, edge_mlp_type: str = "MLP",
@@ -45,11 +49,20 @@ class _Backbone(nn.Module):
     def forward(self, x, senders, receivers, edge_weight=None,
                 deterministic: bool = True, generator=None, exchange=None,
                 edge_mask=None):
+        """The logits: :meth:`stack` on the inputs, the one entry of every
+        backbone."""
+        return self.stack(x, senders, receivers, edge_weight,
+                          not deterministic, generator, exchange, edge_mask)
+
+    def stack(self, x, senders, receivers, edge_weight, training: bool,
+              generator, exchange, edge_mask):
+        """The two layers of :meth:`layers`, dropout between them; a
+        deeper backbone overrides it."""
         layer1, layer2 = self.layers()
         h = torch.relu(layer1(x, senders, receivers, edge_weight, exchange,
                               edge_mask))
-        h = dropout(h, self.dropout_prob, generator,
-                    training=not deterministic, shard=col_block(layer1))
+        h = dropout(h, self.dropout_prob, generator, training=training,
+                    shard=col_block(layer1))
         return layer2(h, senders, receivers, edge_weight, exchange,
                       edge_mask)
 
@@ -164,8 +177,60 @@ class ChebModel(_Backbone):
         return self.gcn1, self.gcn2
 
 
+class GCNIIModel(_Backbone):
+    """GCNII (Chen et al., ICML 2020, Eq. 5) at its published PPI setting
+    by default: h0 = relu(x W_in + b_in), then ``layers`` GCN2Conv layers
+    of ``width`` columns, each followed by a ReLU, then the logits h W_out +
+    b_out. Dropout at ``dropout_prob`` before each of the layers (input,
+    convolutions, output) when training, as the paper's model has it. The
+    edge weights enter GCN's normalisation of every layer. ``nhid`` is the
+    scorer's width alone. The halo exchange is refused (no layer code for
+    an extended table), as are tensor parallelism
+    (``parallel.shard_params_tp``) and ``dense_subgraph='on'``
+    (``core/config.py``)."""
+
+    def __init__(self, in_channels: int, hidden_dim: int, num_classes: int,
+                 dropout_prob: float = 0.3, edge_mlp_type: str = "MLP",
+                 heads: int = 1, dtype=torch.float32, generator=None,
+                 layers: int = 9, width: int = 2048, alpha: float = 0.5,
+                 lam: float = 1.0):
+        super().__init__(in_channels, hidden_dim, dropout_prob,
+                         edge_mlp_type, dtype, generator)
+        self.dtype = dtype
+        self.GCNII_in = dense(in_channels, width, True, generator)
+        for layer in range(1, layers + 1):
+            setattr(self, f"GCNII_conv{layer}",
+                    GCN2Conv(width, layer, alpha, lam, dtype, generator))
+        self.GCNII_out = dense(width, num_classes, True, generator)
+        self.num_layers = layers
+
+    def convs(self):
+        return [getattr(self, f"GCNII_conv{layer}")
+                for layer in range(1, self.num_layers + 1)]
+
+    def stack(self, x, senders, receivers, edge_weight, training: bool,
+              generator, exchange, edge_mask):
+        if exchange is not None:
+            raise NotImplementedError(
+                "GNN=GCNII: the halo exchange is not supported (GCN2Conv "
+                "has no layer code for a halo's extended table)")
+
+        def drop(h):
+            return dropout(h, self.dropout_prob, generator,
+                           training=training)
+        # one normalisation for every layer: the degrees (K2) once
+        w = masked_weights(edge_weight, edge_mask)
+        dis = gcn_degree_factors(senders, receivers, x.shape[0], w,
+                                 x.device)
+        h0 = torch.relu(linear(drop(x), self.GCNII_in, self.dtype)).float()
+        h = h0
+        for conv in self.convs():
+            h = torch.relu(conv(drop(h), h0, senders, receivers, w, dis=dis))
+        return linear(drop(h), self.GCNII_out, self.dtype).float()
+
+
 BACKBONES = {"GCN": GNNModel, "GIN": GINModel, "GAT": GATModel,
-             "Cheb": ChebModel}
+             "Cheb": ChebModel, "GCNII": GCNIIModel}
 
 
 def get_model(gnn: str, in_channels: int, hidden_dim: int, num_classes: int,
@@ -173,11 +238,12 @@ def get_model(gnn: str, in_channels: int, hidden_dim: int, num_classes: int,
               heads: int = 1, dtype="float32", device="cuda",
               generator=None) -> _Backbone:
     """Backbone factory (reference main.py:98-111): ``gnn`` in GCN, GIN,
-    GAT, Cheb; ``edge_mlp_type`` in MLP, GSAGE, GCN; ``heads`` the first
-    GAT layer's. ``dtype`` is the compute dtype of the matmuls (parameters
-    stay float32). Parameters are drawn on the CPU from ``generator``
-    (flax's initialisers), scorer first, so one seed gives the same
-    weights on every device, then moved to ``device``."""
+    GAT, Cheb, and GCNII at its published widths; ``edge_mlp_type`` in
+    MLP, GSAGE, GCN; ``heads`` the first GAT layer's. ``dtype`` is the
+    compute dtype of the matmuls (parameters stay float32). Parameters
+    are drawn on the CPU from ``generator`` (flax's initialisers), scorer
+    first, so one seed gives the same weights on every device, then moved
+    to ``device``."""
     if gnn not in BACKBONES:
         raise NotImplementedError(gnn)
     dev = resolve_device(device)

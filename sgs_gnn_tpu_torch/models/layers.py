@@ -1,6 +1,8 @@
 """Graph convolution layers over COO graphs (port of ``models/layers.py``):
 ``GCNConv``, ``SAGEConv``, ``GATConv``, ``GINConv`` and ``ChebConv``, the
-semantics of the PyG layers the reference builds on.
+semantics of the PyG layers the reference builds on, and ``GCN2Conv``
+(GCNII's layer, which the JAX package does not have) on GCN's
+normalisation.
 
 Parameters stay float32; the dense projections run in the compute dtype
 (bf16 on the card), degree normalisation and the sparse aggregations
@@ -128,15 +130,64 @@ def col_block(module: nn.Module):
     return None if cs is None else cs.cols
 
 
+def masked_weights(edge_weight, edge_mask):
+    """The edge weights with those of the masked edges set to 0 (a 0/1
+    weight where the edges are unweighted); ``edge_weight`` itself without
+    a mask."""
+    if edge_mask is None:
+        return edge_weight
+    mf = edge_mask.float()
+    return mf if edge_weight is None else edge_weight.float() * mf
+
+
+def gcn_degree_factors(senders, receivers, n: int, edge_weight=None,
+                       device=None):
+    """D^{-1/2} of GCN's normalisation, (N,) float32: D the weighted
+    in-degrees plus one (the self-loop; K2, or a ``DenseEdges``' row
+    sums)."""
+    if isinstance(senders, DenseEdges):
+        deg = senders.adj.sum(dim=1) + 1.0
+    else:
+        w_deg = (torch.ones(senders.shape[0], dtype=torch.float32,
+                            device=device)
+                 if edge_weight is None else edge_weight.float())
+        deg = segment_sum_scalar(w_deg, receivers, n) + 1.0
+    return torch.where(deg > 0, torch.rsqrt(deg.clamp(min=1e-32)), 0.0)
+
+
+def gcn_propagate(xw, senders, receivers, edge_weight=None, exchange=None,
+                  edge_mask=None, backend: str = "auto", dis=None):
+    """GCN's normalised aggregation D^{-1/2}(A_w + I)D^{-1/2} xw, (N, F)
+    float32. The normalisation is node-separable: the two degree factors
+    (``dis``, :func:`gcn_degree_factors` of the masked weights where not
+    given) scale nodes around an (un)weighted SpMM of rows in xw's dtype,
+    and the self-loop term is added analytically. ``backend`` is passed to
+    ``ops.spmm``; ``exchange``, ``edge_mask`` and a ``DenseEdges`` as in the
+    module docstring."""
+    n = xw.shape[0]
+    edge_weight = masked_weights(edge_weight, edge_mask)
+    if dis is None:
+        dis = gcn_degree_factors(senders, receivers, n, edge_weight,
+                                 xw.device)
+    xs = xw * dis[:, None].to(xw.dtype)
+    if exchange is not None:
+        # halo: the scaled projections of boundary rows arrive by the
+        # exchange; senders address the extended table
+        agg = spmm(senders, receivers, edge_weight, exchange(xs).float(), n)
+    elif isinstance(senders, DenseEdges):
+        agg = senders.adj.to(xw.dtype) @ xs
+    else:
+        agg = spmm(senders, receivers, edge_weight, xs, n, backend=backend)
+    return (agg.float() * dis[:, None]
+            + (dis * dis)[:, None] * xw.float())
+
+
 class GCNConv(nn.Module):
     """Kipf-Welling GCN layer: D^{-1/2}(A+I)D^{-1/2} X W + b, with PyG
-    GCNConv defaults (normalize, add_self_loops, bias).
-
-    The normalisation is node-separable: degrees are weighted in-degrees
-    plus one (the self-loop), the two degree factors scale nodes around an
-    (un)weighted SpMM, and the self-loop term is added analytically.
-    ``backend`` is passed to ``ops.spmm``: "auto" (gather + K1) or "fused"
-    (K8; the JAX layer's ``backend="pallas"``)."""
+    GCNConv defaults (normalize, add_self_loops, bias): XW in the compute
+    dtype, aggregated by :func:`gcn_propagate`. ``backend`` is passed to
+    ``ops.spmm``: "auto" (gather + K1, or K8 without a backward) or
+    "fused" (K8; the JAX layer's ``backend="pallas"``)."""
 
     def __init__(self, in_features: int, features: int,
                  dtype: torch.dtype = torch.float32, generator=None,
@@ -149,41 +200,46 @@ class GCNConv(nn.Module):
 
     def forward(self, x, senders, receivers, edge_weight=None,
                 exchange=None, edge_mask=None):
-        n = x.shape[0]
-        dense = isinstance(senders, DenseEdges)
         cs = col_shard(self)
         if cs is not None and edge_weight is not None:
             # the weights scale every column block: their gradient is the
             # sum of the blocks' (collective (a))
             edge_weight = cs.copy_in(edge_weight)
-        if edge_mask is not None:
-            mf = edge_mask.float()
-            edge_weight = mf if edge_weight is None \
-                else edge_weight.float() * mf
-        if dense:
-            # weighted in-degree: a row sum
-            deg = senders.adj.sum(dim=1) + 1.0
-        else:
-            w_deg = (torch.ones(senders.shape[0], dtype=torch.float32,
-                                device=x.device)
-                     if edge_weight is None else edge_weight.float())
-            deg = segment_sum_scalar(w_deg, receivers, n) + 1.0
-        dis = torch.where(deg > 0, torch.rsqrt(deg.clamp(min=1e-32)), 0.0)
         xw = linear(x, self.lin, self.dtype)
-        xs = xw * dis[:, None].to(xw.dtype)
-        if exchange is not None:
-            # halo: the scaled projections of boundary rows arrive by the
-            # exchange; senders address the extended table
-            agg = spmm(senders, receivers, edge_weight,
-                       exchange(xs).float(), n)
-        elif dense:
-            agg = senders.adj.to(xw.dtype) @ xs
-        else:
-            agg = spmm(senders, receivers, edge_weight, xs, n,
-                       backend=self.backend)
-        out = (agg.float() * dis[:, None]
-               + (dis * dis)[:, None] * xw.float())
-        return out + self.bias
+        return gcn_propagate(xw, senders, receivers, edge_weight, exchange,
+                             edge_mask, self.backend) + self.bias
+
+
+class GCN2Conv(nn.Module):
+    """GCNII layer (Chen et al., ICML 2020, Eq. 5) without bias:
+    ((1 - alpha) P h + alpha h0) ((1 - beta) I + beta W), beta = ln(lam /
+    layer + 1), P GCN's weighted normalisation (:func:`gcn_propagate`;
+    ``dis``, its degree factors, where the caller shares them between
+    layers). h is rounded to the compute dtype before the propagation, as
+    GCNConv rounds XW, so a bf16 forward without a backward takes K8's
+    tile route; the mix and the identity map are f32, W's product in the
+    compute dtype; the output is f32, before the caller's ReLU. With
+    ``core/spans``' device stamps on, the propagation is the segment
+    ``aggregate`` (the work before it is credited to ``backbone``), as
+    GINConv's sum."""
+
+    def __init__(self, width: int, layer: int, alpha: float, lam: float,
+                 dtype: torch.dtype = torch.float32, generator=None):
+        super().__init__()
+        self.dtype, self.alpha = dtype, alpha
+        self.beta = math.log(lam / layer + 1.0)
+        self.lin = glorot_dense(width, width, generator)
+
+    def forward(self, h, h0, senders, receivers, edge_weight=None,
+                edge_mask=None, dis=None):
+        spans.stamp("backbone", h.device)
+        agg = gcn_propagate(h.to(self.dtype), senders, receivers,
+                            edge_weight, edge_mask=edge_mask, dis=dis)
+        spans.stamp("aggregate", h.device)
+        # one f32 kernel each for the mix and the identity map's blend
+        z = torch.lerp(agg, h0, self.alpha)
+        return (z * (1.0 - self.beta)).add_(linear(z, self.lin, self.dtype),
+                                            alpha=self.beta)
 
 
 class SAGEConv(nn.Module):

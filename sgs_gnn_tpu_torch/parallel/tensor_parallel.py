@@ -33,7 +33,8 @@ the activations stay sharded. GCNConv's reduce sits right after its
 projection, before the aggregation, so the self-loop term and the bias
 see whole rows. The MLP and GraphSAGE scorers have no row pair: (c) comes
 before the head. The GAT backbone owns nothing and runs whole on every
-rank.
+rank (``_WHOLE``); a parameter of any other layer outside these sets is
+refused, before anything changes.
 
 The dropout mask of a column-sharded activation is this rank's slice of
 the whole activation's mask, drawn from a generator seeded alike on the
@@ -62,6 +63,8 @@ from .mesh import Mesh
 _COL = {"gcn1", "fcdim", "fc1", "mlp_lin1", "lin_l", "lin_r"}
 # layer names whose weight is row-sharded (input dim = nhid)
 _ROW = {"gcn2", "fc2", "mlp_lin2"}
+# layer names whose parameters stay whole, the layer run on every rank
+_WHOLE = {"GAT_conv1", "GAT_conv2"}
 
 
 def _owner(names: Iterable[str]) -> Optional[str]:
@@ -169,14 +172,22 @@ def is_sharded(model: torch.nn.Module) -> bool:
 
 
 def shard_params_tp(model: torch.nn.Module, mesh: Mesh) -> torch.nn.Module:
-    """Split ``model``'s owned parameters over ``mesh``'s model axis in
-    place: each becomes this rank's slice (``tp_param_spec``), the modules
-    get their collectives (``Shard``), and the model is marked sharded.
-    Every hidden-sized dim must divide by tp (``ValueError`` otherwise,
-    before anything changes). Returns ``model``; build its optimizer after
-    this call."""
+    """Split ``model``'s owned parameters over ``mesh``'s model axis in place:
+    each becomes this rank's slice (``tp_param_spec``), the modules get
+    their collectives (``Shard``), and the model is marked sharded. Every
+    hidden-sized dim must divide by tp (``ValueError`` otherwise, before
+    anything changes), and every parameter needs a spec or a layer in
+    ``_WHOLE`` (``NotImplementedError``, naming it). Returns ``model``;
+    build its optimizer after this call."""
     if is_sharded(model):
         raise ValueError("shard_params_tp: the model is sharded already")
+    for n, _ in model.named_parameters():
+        names = n.split(".")
+        if _owner(names) is None and not _WHOLE.intersection(names):
+            raise NotImplementedError(
+                f"shard_params_tp: parameter {n} has no tensor-parallel "
+                "spec (its layer is neither column- nor row-sharded, nor "
+                "one that runs whole on every rank)")
     tp, r = mesh.tp, mesh.model_rank
     specs = {n: tp_param_spec(n, p) for n, p in model.named_parameters()}
     for n, p in model.named_parameters():

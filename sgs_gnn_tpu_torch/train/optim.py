@@ -40,8 +40,11 @@ from ..core import spans
 
 
 def gnn_filter_for(gnn: str) -> Callable[[str], bool]:
-    """Name filter replicating reference main.py:100/103/106/109."""
-    token = {"GCN": "gcn", "Cheb": "gcn", "GIN": "GIN", "GAT": "GAT"}[gnn]
+    """Name filter replicating reference main.py:100/103/106/109; GCNII's
+    parameters (``models/backbones.py`` ``GCNIIModel``) carry "GCNII",
+    which no scorer name holds."""
+    token = {"GCN": "gcn", "Cheb": "gcn", "GIN": "GIN", "GAT": "GAT",
+             "GCNII": "GCNII"}[gnn]
     return lambda name: token in name
 
 

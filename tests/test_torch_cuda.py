@@ -2079,3 +2079,108 @@ def test_served_gin_draws_put_k1_in_rows_mode(card):
         # torch.topk's radix select and torch.sort's kernels
         assert not any(lib in k for k in names for lib in (
             "mbtopk", "RadixSort", "bitonicSort", "sortKeyValue")), names
+
+
+# ---------------------------------------- GCNII (models/backbones.py)
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_forward_only_spmm_takes_k8_at_2048_columns(card, weighted):
+    """GCNII's propagation width: K8's tile route in 8 column slices of
+    256, held as ``test_forward_only_spmm_takes_k8`` holds one slice."""
+    plan = sp.spmm_plan(2123, 2048, 200_000, 2)
+    assert (plan.route, plan.width, plan.slices) == ("tiles", 256, 8)
+    test_forward_only_spmm_takes_k8(card, 2048, weighted)
+
+
+def _gcnii(dtype, dev):
+    from sgs_gnn_tpu_torch.models.backbones import GCNIIModel
+    return GCNIIModel(96, 32, 7, 0.3, "GCN", dtype=dtype,
+                      generator=torch.Generator().manual_seed(4)).to(dev)
+
+
+@pytest.mark.parametrize("grad", [False, True], ids=["forward", "backward"])
+def test_gcnii_on_card_matches_cpu_f32(card, grad):
+    """GCNII at its published 9 x 2048 in bf16 on the card against the
+    port's f32 on the CPU: forward only, every propagation on K8's tiles
+    (8 slices); with a backward, every propagation on the gather route and
+    K1 at 2048 bf16 columns. Limits as ``test_layer_on_card_matches_cpu_
+    f32``'s: the larger of 2% / 5% and twice the CPU bf16 run's own
+    error."""
+    rng = np.random.default_rng(8)
+    n, e = 400, 40_000
+    x = torch.from_numpy(rng.normal(size=(n, 96)).astype(np.float32))
+    s = torch.from_numpy(rng.integers(0, n, e).astype(np.int32))
+    r = torch.from_numpy(rng.integers(0, n, e).astype(np.int32))
+    w = torch.from_numpy(rng.uniform(0.1, 1.0, e).astype(np.float32))
+    cot = torch.from_numpy(rng.normal(size=(n, 7)).astype(np.float32))
+    out, grads, routes = {}, {}, {}
+    for side, dev, dt in (("card", card, torch.bfloat16),
+                          ("cpu", "cpu", torch.float32),
+                          ("cpu_bf16", "cpu", torch.bfloat16)):
+        model = _gcnii(dt, dev)
+        before = collections.Counter(sp._build.ROUTES)
+        with torch.set_grad_enabled(grad):
+            y = model(x.to(dev), s.to(dev), r.to(dev), w.to(dev))
+        routes[side] = collections.Counter(sp._build.ROUTES) - before
+        out[side] = y.detach().float().cpu()
+        if grad:
+            names, params = zip(*[(k, p) for k, p in
+                                  model.named_parameters() if "GCNII" in k])
+            g = torch.autograd.grad(y, list(params), cot.to(dev))
+            grads[side] = dict(zip(names, (t.float().cpu() for t in g)))
+    want_route = "gather_k1" if grad else "k8_tiles"
+    assert routes["card"][("spmm", want_route)] == 9, routes["card"]
+    assert _rel_l2(out["card"], out["cpu"]) <= max(
+        2e-2, 2 * _rel_l2(out["cpu_bf16"], out["cpu"]))
+    for name, want in grads.get("cpu", {}).items():
+        tol = max(5e-2, 2 * _rel_l2(grads["cpu_bf16"][name], want))
+        assert _rel_l2(grads["card"][name], want) <= tol, name
+
+
+def test_stamped_gcnii_predict(card):
+    """GCNII + GCN ``predict`` at the published widths, every propagation
+    on K8: the logits with the stamps on within a relative 1e-2 of those
+    with them off (K8 adds its split-K parts with f32 atomics in no fixed
+    order, and nine bf16 layers carry a flipped rounding on); each draw's
+    nine propagations stamped ``serve.aggregate`` (> 0); no message
+    matrix written."""
+    from sgs_gnn_tpu_torch import Config, Graph, make_predictor
+    from sgs_gnn_tpu_torch.core import spans
+    from sgs_gnn_tpu_torch.data import degree_prior
+    rng = np.random.default_rng(2)
+    n, e, c = 300, 20_000, 7
+    ei = rng.integers(0, n, (2, e)).astype(np.int32)
+    g = Graph.build(rng.normal(size=(n, 96)).astype(np.float32), ei,
+                    rng.integers(0, c, n).astype(np.int32),
+                    prob=degree_prior(ei[0], ei[1], n), num_classes=c,
+                    sort_by_receiver=True, device=card)
+    cfg, q = Config(nhid=32, num_samples_eval=4, GNN="GCNII"), 4_000
+    tm = _gcnii(torch.bfloat16, card)
+    runs = []
+    for stamped in (False, True):
+        if stamped:
+            _stamps_on()
+        try:
+            predict = make_predictor(cfg, tm, q)
+            gen = torch.Generator(device=card)
+            out = [predict(g, gen.manual_seed(s))[0] for s in (1, 2)]
+            torch.cuda.synchronize()
+            spans.reset()
+            out += [predict(g, gen.manual_seed(s))[0] for s in (1, 2, 3)]
+            torch.cuda.synchronize()
+            got = spans.collect()
+        finally:
+            _stamps_off()
+        runs.append((out, got))
+    (off, off_rec), (on, on_rec) = runs
+    for a, b in zip(on, off):
+        assert _rel_l2(a, b.float().cpu()) <= 1e-2
+    assert off_rec["segments"] == {}
+    seg = on_rec["segments"]
+    assert seg["serve.aggregate"]["stamps"] == 3 * cfg.num_samples_eval * 9
+    assert seg["serve.aggregate"]["s"] > 0 and seg["serve.backbone"]["s"] > 0
+    for rec in (off_rec, on_rec):
+        assert "kernels.bytes.spmm.gather_k1" not in rec["counters"]
+        assert rec["counters"]["kernels.routes.spmm.k8_tiles"] == \
+            3 * (cfg.num_samples_eval * 9 + 2)

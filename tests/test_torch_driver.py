@@ -251,11 +251,17 @@ def _actions(parser):
 
 
 def test_parser_matches_jax_except_device():
+    """The JAX parser's options, but ``--device`` (default cuda) and the
+    backbone the port alone has, GCNII, among ``--GNN``'s choices."""
     j, t = _actions(jcli.build_parser()), _actions(cli.build_parser())
     assert set(j) == set(t)
     for dest in j:
         if dest == "device":
             assert t[dest][1] == "cuda"
+            continue
+        if dest == "GNN":
+            assert t[dest][4] == j[dest][4] + ["GCNII"]
+            assert t[dest][:4] + t[dest][5:] == j[dest][:4] + j[dest][5:]
             continue
         assert t[dest] == j[dest], dest
     args = ["--dataset", "Karate", "--mode", "edge", "--sparse_edge_mlp",
